@@ -1,0 +1,33 @@
+"""Architecture registry of the port.
+
+``get(arch)`` returns the full published config, ``get_smoke(arch)`` the
+reduced same-family config the CPU tests use. Only the architectures whose
+family the port runs are listed; the others wait for their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs import granite_8b
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = {"granite-8b": granite_8b}
+ARCHS = sorted(_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _MODULES:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet (have {ARCHS}); its family "
+            "waits in ROADMAP.md Queue 1")
+    return _MODULES[arch]
+
+
+def get(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE
+
+
+__all__ = ["ModelConfig", "ARCHS", "get", "get_smoke"]

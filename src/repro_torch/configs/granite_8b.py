@@ -1,0 +1,13 @@
+"""granite-8b — llama-arch dense GQA, code model [arXiv:2405.04324]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-8b", family="dense",
+    num_layers=36, d_model=4096, num_heads=32, num_kv_heads=8,
+    d_ff=14336, vocab_size=49152,
+)
+
+SMOKE = CONFIG.replace(
+    name="granite-smoke", num_layers=2, d_model=64, num_heads=4,
+    num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
+)

@@ -1,0 +1,111 @@
+"""Attention blocks: GQA causal / sliding-window self-attention and its
+one-token decode step (port of ``repro.models.attention``).
+
+Layout as in the reference: activations (B, S, D), projections keep heads
+explicit ((B, S, H, Dh)), KV caches are (B, Smax, K, Dh) and sliding-window
+caches are ring buffers of ``window`` slots.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers import ParamSpec, apply_rope, rotary_embedding
+
+__all__ = ["attn_specs", "attn_apply", "attn_decode"]
+
+
+def attn_specs(cfg) -> dict:
+    D, H, K, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = {
+        "wq": ParamSpec((D, H, Dh), ("embed", "heads", "head")),
+        "wk": ParamSpec((D, K, Dh), ("embed", "kv_heads", "head")),
+        "wv": ParamSpec((D, K, Dh), ("embed", "kv_heads", "head")),
+        "wo": ParamSpec((H, Dh, D), ("heads", "head", "embed"),
+                        fan_in_axes=(0, 1)),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((H, Dh), ("heads", "head"), init="zeros")
+        s["bk"] = ParamSpec((K, Dh), ("kv_heads", "head"), init="zeros")
+        s["bv"] = ParamSpec((K, Dh), ("kv_heads", "head"), init="zeros")
+    return s
+
+
+def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
+    D, H, Dh = w.shape
+    return (x @ w.to(x.dtype).reshape(D, H * Dh)).unflatten(-1, (H, Dh))
+
+
+def _proj_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd")."""
+    H, Dh, D = w.shape
+    return o.flatten(-2) @ w.to(o.dtype).reshape(H * Dh, D)
+
+
+def _qkv(p, x, cfg):
+    q = _proj_in(x, p["wq"])
+    k = _proj_in(x, p["wk"])
+    v = _proj_in(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return q, k, v
+
+
+def attn_apply(p: dict, x: torch.Tensor, cfg, *, window: int | None = None):
+    """Full-sequence (prefill) causal self-attention. x: (B, S, D).
+    Returns the output and the rotated (k, v) for the decode cache."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    positions = torch.arange(S, device=x.device)[None, :]
+    sin, cos = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    o = flash_attention(q, k, v, causal=True, window=window)
+    return _proj_out(o, p["wo"]), (k, v)
+
+
+def attn_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
+                cache_v: torch.Tensor, pos: torch.Tensor, cfg, *,
+                window: int | None = None) -> torch.Tensor:
+    """One-token decode step; writes this token's K/V into the caches in
+    place (the reference returns new caches, which JAX donates).
+
+    x: (B, 1, D); cache_k/v: (B, Smax, K, Dh); pos: (B,) int (absolute
+    position of each row's token — rows differ under continuous batching).
+    Caches are rings indexed ``pos % Smax``; rope uses absolute positions.
+    Attention over the cache is plain PyTorch, as it is plain jnp in the
+    reference. Returns out (B, 1, D).
+    """
+    B = x.shape[0]
+    Smax, K = cache_k.shape[1], cache_k.shape[2]
+    H, Dh = cfg.num_heads, cfg.head_dim
+    G = H // K
+    pos = pos.expand(B).long()
+
+    q, k_new, v_new = _qkv(p, x, cfg)
+    sin, cos = rotary_embedding(pos[:, None], Dh, cfg.rope_theta)
+    q = apply_rope(q, sin, cos)
+    k_new = apply_rope(k_new, sin, cos)
+
+    slot = pos % Smax                                       # (B,)
+    rows = torch.arange(B, device=x.device)
+    cache_k[rows, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[rows, slot] = v_new[:, 0].to(cache_v.dtype)
+
+    qf = q.float().reshape(B, K, G, Dh)
+    s = torch.einsum("bkgd,btkd->bkgt", qf, cache_k.float()) * (Dh ** -0.5)
+    # slot j holds the token `age = (slot - j) mod Smax` steps in the past
+    idx = torch.arange(Smax, device=x.device)[None, :]
+    age = (slot[:, None] - idx) % Smax                      # (B, Smax); 0 = now
+    valid = age <= torch.clamp(pos, max=Smax - 1)[:, None]  # written yet?
+    if window is not None:
+        valid &= age < window
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full((), -1e30, device=x.device))
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", pattn, cache_v.float()).reshape(B, 1, H, Dh)
+    return _proj_out(o.to(x.dtype), p["wo"])

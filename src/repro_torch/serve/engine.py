@@ -1,0 +1,129 @@
+"""Serving engine: continuous batching over a persistent KV cache (port of
+``repro.serve.engine``).
+
+The engine owns ``max_batch`` decode slots. Requests queue FIFO; a free
+slot triggers a batch-1 prefill whose per-layer cache is spliced into row b
+of the batched (L, B, ...) cache; every ``step()`` advances all active slots
+by one token, each at its own position. Finished slots free at once and the
+next request is admitted. Decoding is greedy (first index on ties, as
+``jnp.argmax``).
+"""
+
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.parallel.steps import make_prefill_step, make_serve_step
+
+__all__ = ["Request", "ServeEngine"]
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new_tokens: int = 16
+    eos_id: int | None = None
+    generated: list[int] = field(default_factory=list)
+    done: bool = False
+
+
+@dataclass
+class _Slot:
+    active: bool = False
+    rid: int | None = None
+    pos: int = 0                 # absolute position of the NEXT token to write
+    budget: int = 0
+
+
+class ServeEngine:
+    def __init__(self, cfg, params, *, max_batch: int = 4, max_len: int = 256,
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"engine runs on {self.device}")
+        self.cfg, self.params = cfg, params
+        self.max_batch, self.max_len = max_batch, max_len
+        self.prefill = make_prefill_step(cfg, max_len=max_len)
+        self.decode = make_serve_step(cfg)
+        self.cache = M.init_cache(cfg, max_batch, max_len, device=self.device)
+        self.slots = [_Slot() for _ in range(max_batch)]
+        self.queue: list[Request] = []
+        self.requests: dict[int, Request] = {}
+        self._ids = itertools.count()
+        self.steps_run = 0
+
+    # ------------------------------------------------------------- requests
+    def submit(self, prompt: list[int], *, max_new_tokens: int = 16,
+               eos_id: int | None = None) -> int:
+        rid = next(self._ids)
+        req = Request(rid, list(prompt), max_new_tokens, eos_id)
+        self.requests[rid] = req
+        self.queue.append(req)
+        return rid
+
+    # -------------------------------------------------------------- interns
+    def _splice(self, row_cache: dict, b: int) -> None:
+        """Copy a batch-1 prefill cache (L, 1, ...) into cache row ``b``."""
+        with torch.inference_mode():
+            for name, full in self.cache["layers"].items():
+                full[:, b] = row_cache["layers"][name][:, 0]
+
+    def _admit(self) -> None:
+        for slot_id, slot in enumerate(self.slots):
+            if slot.active or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            tokens = torch.tensor([req.prompt], dtype=torch.long, device=self.device)
+            logits, row_cache = self.prefill(self.params, {"tokens": tokens})
+            self._splice(row_cache, slot_id)
+            first = int(torch.argmax(logits[0]))
+            req.generated.append(first)
+            slot.active, slot.rid = True, req.rid
+            slot.pos = len(req.prompt)      # next write position
+            slot.budget = req.max_new_tokens - 1
+            if slot.budget <= 0 or first == req.eos_id:
+                req.done, slot.active = True, False
+
+    # ----------------------------------------------------------------- step
+    def step(self) -> bool:
+        """Admit + one decode step. Returns True while work remains."""
+        self._admit()
+        if not any(s.active for s in self.slots):
+            return bool(self.queue)
+        tokens = np.zeros((self.max_batch, 1), np.int64)
+        pos = np.zeros((self.max_batch,), np.int64)
+        for i, slot in enumerate(self.slots):
+            if slot.active:
+                tokens[i, 0] = self.requests[slot.rid].generated[-1]
+                pos[i] = slot.pos
+        logits, self.cache = self.decode(
+            self.params, self.cache, torch.from_numpy(tokens).to(self.device),
+            torch.from_numpy(pos).to(self.device))
+        self.steps_run += 1
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        for i, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            req = self.requests[slot.rid]
+            tok = int(nxt[i])
+            req.generated.append(tok)
+            slot.pos += 1
+            slot.budget -= 1
+            if slot.budget <= 0 or tok == req.eos_id or \
+                    slot.pos >= self.max_len - 1:
+                req.done, slot.active = True, False
+        return True
+
+    def run(self, max_steps: int = 10_000) -> list[Request]:
+        for _ in range(max_steps):
+            if not self.step() and not any(s.active for s in self.slots):
+                break
+        return [self.requests[r] for r in sorted(self.requests)]

@@ -1,0 +1,140 @@
+"""Port's model against the JAX package's on the same weights (carried over
+with ``repro_torch.interop``): parameter tree shapes and count, prefill
+logits and cache, decode steps at mixed per-row positions, the ring roll of
+a prompt longer than the cache, and the port's own seeded init statistics."""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.models.layers import ParamSpec as JSpec  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models.layers import flatten_specs  # noqa: E402
+
+TOL = dict(rtol=1e-4, atol=1e-4)   # float32 on both sides; op order differs
+
+
+def _jax_shapes(cfg):
+    flat = jax.tree_util.tree_flatten_with_path(
+        JM.param_shapes(cfg), is_leaf=lambda x: isinstance(x, JSpec))[0]
+    return {tuple(k.key for k in path): tuple(spec.shape) for path, spec in flat}
+
+
+@pytest.mark.parametrize("which", ["get", "get_smoke"])
+def test_param_shapes_match_reference(which):
+    jcfg = getattr(jconfigs, which)("granite-8b")
+    tcfg = getattr(tconfigs, which)("granite-8b")
+    ours = {path: tuple(s.shape) for path, s in flatten_specs(TM.param_shapes(tcfg))}
+    assert ours == _jax_shapes(jcfg)
+
+
+def test_param_count_full_width():
+    n = tconfigs.get("granite-8b").param_count()
+    assert n == sum(int(np.prod(s)) for s in _jax_shapes(jconfigs.get("granite-8b")).values())
+    assert 8.2e9 < n < 8.3e9          # untied embed + unembed
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    jcfg = jconfigs.get_smoke("granite-8b").replace(dtype="float32")
+    tcfg = tconfigs.get_smoke("granite-8b").replace(dtype="float32")
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, tcfg, jparams, interop.to_torch(jparams)
+
+
+def _close(ours, ref):
+    np.testing.assert_allclose(interop.to_numpy(ours) if isinstance(ours, torch.Tensor)
+                               else ours, np.asarray(ref), **TOL)
+
+
+def _close_cache(ours, ref):
+    for name in ("k", "v"):
+        _close(ours["layers"][name], ref["layers"][name])
+
+
+def test_prefill_and_mixed_position_decode(smoke):
+    jcfg, tcfg, jparams, tparams = smoke
+    B, S, max_len = 3, 7, 16
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, jcfg.vocab_size, (B, S))
+    jl, jc = JM.prefill(jparams, jcfg, {"tokens": jnp.asarray(tokens)}, max_len)
+    with torch.inference_mode():
+        tl, tc = TM.prefill(tparams, tcfg, {"tokens": torch.from_numpy(tokens)}, max_len)
+    _close(tl, jl)
+    _close_cache(tc, jc)
+    pos = np.array([S, S - 3, S + 2])              # rows at different depths
+    for step in range(3):
+        nxt = rng.integers(0, jcfg.vocab_size, (B, 1))
+        jl, jc = JM.decode_step(jparams, jcfg, jc, jnp.asarray(nxt),
+                                jnp.asarray(pos + step))
+        with torch.inference_mode():
+            tl, tc = TM.decode_step(tparams, tcfg, tc, torch.from_numpy(nxt),
+                                    torch.from_numpy(pos + step))
+        _close(tl, jl)
+        _close_cache(tc, jc)
+
+
+def test_prompt_longer_than_cache_rolls_into_ring(smoke):
+    jcfg, tcfg, jparams, tparams = smoke
+    S, max_len = 21, 8                               # ring phase 21 % 8 = 5
+    tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (1, S))
+    jl, jc = JM.prefill(jparams, jcfg, {"tokens": jnp.asarray(tokens)}, max_len)
+    with torch.inference_mode():
+        tl, tc = TM.prefill(tparams, tcfg, {"tokens": torch.from_numpy(tokens)}, max_len)
+    _close(tl, jl)
+    _close_cache(tc, jc)
+    nxt = np.array([[3]])
+    jl, jc = JM.decode_step(jparams, jcfg, jc, jnp.asarray(nxt), jnp.asarray([S]))
+    with torch.inference_mode():
+        tl, tc = TM.decode_step(tparams, tcfg, tc, torch.from_numpy(nxt),
+                                torch.tensor([S]))
+    _close(tl, jl)
+    _close_cache(tc, jc)
+
+
+def test_seeded_init_statistics():
+    cfg = tconfigs.get_smoke("granite-8b").replace(num_layers=4, d_model=128, d_ff=256)
+    gen = torch.Generator().manual_seed(0)
+    p = TM.init_params(cfg, gen, torch.float32)
+    D, H, Dh, F = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.d_ff
+    expect = {"wq": D ** -0.5, "wk": D ** -0.5, "wv": D ** -0.5,
+              "wo": (H * Dh) ** -0.5, "wi_gate": D ** -0.5, "wi_up": D ** -0.5,
+              "wo_mlp": F ** -0.5}
+    for name, std in expect.items():
+        got = p["layers"][name].std().item()
+        assert abs(got - std) < 0.05 * std, (name, got, std)
+    assert abs(p["unembed"].std().item() - D ** -0.5) < 0.05 * D ** -0.5
+    assert abs(p["embed"].std().item() - 0.02) < 0.05 * 0.02
+    for name in ("pre_norm", "mlp_norm"):
+        assert torch.equal(p["layers"][name], torch.ones_like(p["layers"][name]))
+    assert torch.equal(p["final_norm"], torch.ones(D))
+    again = TM.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+    assert torch.equal(again["layers"]["wq"], p["layers"]["wq"])
+
+
+def test_interop_carries_bf16_bits_and_back():
+    a = np.random.default_rng(2).standard_normal((3, 5)).astype(np.float32)
+    tree = {"w": jnp.asarray(a, jnp.bfloat16), "sub": {"b": jnp.asarray(a)}}
+    ours = interop.to_torch(tree)
+    assert ours["w"].dtype == torch.bfloat16 and ours["sub"]["b"].dtype == torch.float32
+    np.testing.assert_array_equal(ours["w"].float().numpy(),
+                                  np.asarray(tree["w"], np.float32))
+    back = interop.to_numpy(ours)
+    np.testing.assert_array_equal(back["w"], np.asarray(tree["w"], np.float32))
+    np.testing.assert_array_equal(back["sub"]["b"], a)
+
+
+def test_other_families_raise_not_implemented():
+    cfg = tconfigs.get_smoke("granite-8b").replace(family="ssm")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.param_shapes(cfg)
