@@ -5,29 +5,38 @@
 
 Phases, each of which ends the run with a non-zero exit when it fails:
   1. device   — a CUDA card must be visible; prints its name and power limit;
-  2. build    — builds the hand-written kernels from src/repro_torch/csrc;
+  2. build    — builds the hand-written kernels from src/repro_torch/csrc,
+                one nvcc per source, all started together;
   3. kernels  — holds each kernel against its plain PyTorch version on the
-                card, on seeded inputs, and times it beside the plain version,
-                the matching PyTorch library call and its roofline bound;
-  4. model    — granite-smoke in float32 on the card against the same seeded
-                weights on the CPU: prefill and one decode step;
-  5. serving  — granite-8b at full width (36 x 4096, bf16, weights made on the
-                card from a seed) serves 8 requests through ServeEngine; the
-                kernel launch counts are read around this run only;
-  6. profile  — the same 8 requests served again under torch.profiler: host
-                and device time of the prefill and decode spans, the device's
-                idle share, and the kernels that take the device time.
+                card, on seeded inputs (flash attention at head_dim 128 and
+                256, the RG-LRU scan), and times it beside the plain version,
+                the matching PyTorch library call where there is one and its
+                roofline bound;
+  4. model    — granite-smoke and recurrentgemma-smoke in float32 on the card
+                against the same seeded weights on the CPU: prefill, decode
+                and every cache leaf, with the kernel launches per prefill;
+  5. serving  — granite-8b at full width (36 x 4096, bf16), then
+                recurrentgemma-2b at full width (26 layers, 2560 wide, bf16),
+                weights made on the card from a seed, each serving 8 requests
+                through ServeEngine; the kernel launch counts are set to 0
+                just before each run and read just after it;
+  6. profile  — after each serving run, the same 8 requests served again under
+                torch.profiler: host and device time of the prefill and decode
+                spans, the device's idle share, and the kernels that take the
+                device time.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel record. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -39,20 +48,30 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.flash_attention import kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as flash_module  # noqa: E402
+from repro_torch.kernels.rglru import kernel as lru_module  # noqa: E402
+from repro_torch.kernels.rglru import lru_scan_kernel, lru_scan_ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # Kernel vs plain version: float32 differs by summation order only; bf16
 # by the rounding of the output (and of P inside the kernel's sums).
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# The scan and its plain version do the same f32 steps in the same order
+# (a product, then a sum, each rounded), so they agree to the bit; the
+# tolerance allows one ulp of the output should the compiler contract them.
+LRU_TOL = {torch.float32: dict(atol=1e-6, rtol=1e-6),
+           torch.bfloat16: dict(atol=0, rtol=8e-3)}
 MODEL_TOL = dict(atol=1e-3, rtol=1e-3)      # whole model, float32, card vs CPU
+T_START = time.perf_counter()
 
 
 def fail(msg: str):
@@ -85,20 +104,59 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(B, Sq, Sk, H, K, D, causal):
+def bound(t_ops: float, t_bytes: float) -> tuple[float, str]:
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bound(B, Sq, Sk, H, K, D, causal, window=None):
     """Least time (ms) for bf16 attention on these inputs: each input read and
-    the output written once; QK^T and PV over the (q, k) pairs the mask keeps."""
-    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    the output written once; QK^T and PV over the (q, k) pairs the mask keeps
+    (q and k positions both counted from 0)."""
+    def keys(i):
+        hi = min(i + 1, Sk) if causal else Sk
+        lo = max(0, i - window + 1) if window else 0
+        return max(0, hi - lo)
+    pairs = sum(keys(i) for i in range(Sq))
     flops = 4 * B * H * D * pairs
     nbytes = 2 * B * D * (2 * Sq * H + 2 * Sk * K)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return bound(flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3)
+
+
+def lru_bound(B, S, W, itemsize):
+    """Least time (ms) for the scan: a and b read once, h written once; one
+    f32 product and one sum per element."""
+    return bound(2 * B * S * W / PEAK_F32_FLOPS * 1e3,
+                 3 * B * S * W * itemsize / PEAK_BYTES * 1e3)
 
 
 def to_device(tree, device):
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def reset_counts() -> None:
+    flash_attention_kernel.launches = 0
+    lru_scan_kernel.launches = 0
+
+
+def read_counts() -> dict:
+    return {"flash_attention": flash_attention_kernel.launches,
+            "lru_scan": lru_scan_kernel.launches}
+
+
+def launches_per_prefill(cfg) -> dict:
+    kinds = tfm.layer_kinds(cfg)
+    return {"flash_attention": sum(k in ("attn", "local_attn") for k in kinds),
+            "lru_scan": kinds.count("rglru")}
 
 
 # --------------------------------------------------------------------- phases
@@ -116,18 +174,19 @@ def phase_device() -> str:
 
 def phase_build():
     t0 = time.perf_counter()
-    kernel._library()
-    log(f"[build] flash_attention.cu built and loaded in "
-        f"{time.perf_counter() - t0:.3f} s (set-up)")
+    modules = (flash_module, lru_module)
+    with ThreadPoolExecutor(len(modules)) as pool:      # one nvcc per source
+        for fut in [pool.submit(m._library) for m in modules]:
+            fut.result()
+    log(f"[build] {', '.join(m.SOURCE.name for m in modules)} built and loaded "
+        f"in {time.perf_counter() - t0:.3f} s (set-up)")
     for logfile in sorted(build.BUILD_DIR.glob("*.log")):
         for line in logfile.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"[build] {logfile.name.split('-')[0]}: {line.strip()}")
 
 
-def phase_kernels(dev) -> dict:
-    gen = torch.Generator(device=dev).manual_seed(0)
-
+def check_flash(gen, dev) -> dict:
     def inputs(B, Sq, Sk, H, K, D, dt):
         return [torch.randn(shape, generator=gen, device=dev).to(dt)
                 for shape in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D))]
@@ -143,6 +202,10 @@ def phase_kernels(dev) -> dict:
         (2, 77, 77, 4, 2, 16, torch.float32, True, None),         # granite-smoke heads
         (2, 77, 77, 4, 2, 16, torch.bfloat16, True, None),
     ]
+    for S in (340, 2500):                   # recurrentgemma-2b local attention
+        for dt in (torch.bfloat16, torch.float32):
+            cases.append((1, S, S, 10, 1, 256, dt, True, 2048))
+    cases.append((2, 45, 45, 4, 1, 16, torch.float32, True, 32))  # recurrentgemma-smoke
     errs = {}
     for (B, Sq, Sk, H, K, D, dt, causal, window) in cases:
         q, k, v = inputs(B, Sq, Sk, H, K, D, dt)
@@ -153,73 +216,143 @@ def phase_kernels(dev) -> dict:
         ok = torch.allclose(out.float(), ref.float(), **TOL[dt])
         name = (f"B={B} Sq={Sq} Sk={Sk} H={H} K={K} D={D} {str(dt)[6:]} "
                 f"causal={causal} window={window}")
-        errs[(Sq, Sk, dt, causal, window, H)] = err
+        errs[(Sq, dt, H, D, window)] = err
         log(f"[kernels] flash_attention {name}: max_abs_err={err:.3e} "
             f"(atol=rtol={TOL[dt]['atol']:g}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"flash_attention disagrees with its plain version at {name}")
 
     timings = {}
-    for S in (340, 2048):
-        B, H, K, D = 1, 32, 8, 128
+    for (S, H, K, D, window) in ((340, 32, 8, 128, None), (2048, 32, 8, 128, None),
+                                 (340, 10, 1, 256, 2048), (2500, 10, 1, 256, 2048)):
+        B = 1
         q, k, v = inputs(B, S, S, H, K, D, torch.bfloat16)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        ms = time_ms(lambda: flash_attention_kernel(q, k, v))
-        plain_ms = time_ms(lambda: attention_ref(q, k, v), iters=5)
-        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-        bound_ms, bound_by = attention_bound(B, S, S, H, K, D, True)
-        timings[S] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[kernels] flash_attention bf16 causal B=1 S={S} H=32 K=8 D=128: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+        if window is None:
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:                              # SDPA takes the window as a boolean mask
+            qpos = torch.arange(S, device=dev)[:, None]
+            kpos = torch.arange(S, device=dev)[None, :]
+            mask = (kpos <= qpos) & (qpos - kpos < window)
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        ms = time_ms(lambda: flash_attention_kernel(q, k, v, window=window))
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, window=window), iters=5)
+        lib_ms = time_ms(lib)
+        bound_ms, bound_by = attention_bound(B, S, S, H, K, D, True, window)
+        shape = f"bf16 causal B=1 S={S} H={H} K={K} D={D} window={window}"
+        timings[(S, D)] = dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               max_abs_err=errs.get((S, torch.bfloat16, H, D, window)))
+        log(f"[kernels] flash_attention {shape}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), kernel at {bound_ms / ms:.1%} of bound")
+    return {"d128": timings[(340, 128)], "d256": timings[(2500, 256)]}
+
+
+def check_lru(gen, dev) -> dict:
+    def inputs(B, S, W, dt):
+        a = torch.rand((B, S, W), generator=gen, device=dev).to(dt)   # decays in [0, 1)
+        b = torch.randn((B, S, W), generator=gen, device=dev).to(dt)
+        return a, b
+
+    errs = {}
+    shapes = [(1, 1, 2560), (1, 3, 2560), (1, 340, 2560), (4, 1000, 2560),
+              (1, 2500, 2560), (2, 77, 64), (1, 300, 130), (3, 17, 130)]
+    for (B, S, W) in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            a, b = inputs(B, S, W, dt)
+            out = lru_scan_kernel(a, b)
+            torch.cuda.synchronize()
+            ref = lru_scan_ref(a, b)
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = out.dtype == dt and torch.allclose(out.float(), ref.float(), **LRU_TOL[dt])
+            name = f"B={B} S={S} W={W} {str(dt)[6:]}"
+            errs[(B, S, W, dt)] = err
+            log(f"[kernels] lru_scan {name}: max_abs_err={err:.3e} "
+                f"(atol={LRU_TOL[dt]['atol']:g} rtol={LRU_TOL[dt]['rtol']:g}) "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"lru_scan disagrees with its plain version at {name}")
+
+    timings = {}
+    for S in (340, 2500):
+        B, W = 1, 2560
+        a, b = inputs(B, S, W, torch.bfloat16)
+        ms = time_ms(lambda: lru_scan_kernel(a, b))
+        plain_ms = time_ms(lambda: lru_scan_ref(a, b), iters=3, warmup=1)
+        bound_ms, bound_by = lru_bound(B, S, W, 2)
+        shape = f"bf16 B=1 S={S} W={W}"
+        timings[S] = dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=errs[(B, S, W, torch.bfloat16)])
+        log(f"[kernels] lru_scan {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"no library call, bound {bound_ms:.4f} ms ({bound_by}), kernel at "
             f"{bound_ms / ms:.1%} of bound")
-    rec = timings[340]
-    rec["max_abs_err"] = errs[(340, 340, torch.bfloat16, True, None, 32)]
-    return rec
+    return timings[2500]
 
 
-def phase_model(dev) -> None:
-    cfg = configs.get_smoke("granite-8b").replace(dtype="float32")
+def phase_kernels(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return {"flash": check_flash(gen, dev), "lru": check_lru(gen, dev)}
+
+
+def model_check(dev, arch: str, B: int, S: int, pos: list[int], max_len: int) -> None:
+    """Smoke width in float32, card against CPU on one set of seeded weights:
+    one prefill and one decode step at per-row positions ``pos``."""
+    cfg = configs.get_smoke(arch).replace(dtype="float32")
     params = M.init_params(cfg, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 37)))
-    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
-    pos = torch.tensor([37, 30])
-    before = flash_attention_kernel.launches
-    res = {}
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)))
+    res, counts = {}, {}
     for device in ("cpu", dev):
         p = to_device(params, device)
         with torch.inference_mode():
-            logits, cache = M.prefill(p, cfg, {"tokens": tokens.to(device)}, 64)
-            dlogits, cache = M.decode_step(p, cfg, cache, nxt.to(device), pos.to(device))
-        res[str(device)] = (logits.cpu(), dlogits.cpu(), cache["layers"]["k"].cpu())
-    launches = flash_attention_kernel.launches - before
-    (cl, cd, ck), (gl, gd, gk) = res["cpu"], res[str(dev)]
-    errs = [(a - b).abs().max().item() for a, b in ((gl, cl), (gd, cd), (gk, ck))]
-    log(f"[model] granite-smoke f32 card vs CPU: prefill logits err {errs[0]:.3e}, "
-        f"decode logits err {errs[1]:.3e}, cache err {errs[2]:.3e} "
-        f"(atol=rtol=1e-3); flash_attention launches {launches}")
-    if not all(torch.allclose(a, b, **MODEL_TOL)
-               for a, b in ((gl, cl), (gd, cd), (gk, ck))):
-        fail("granite-smoke on the card disagrees with the CPU")
-    if launches != cfg.num_layers:
-        fail(f"prefill launched the kernel {launches} times, not {cfg.num_layers}")
+            reset_counts()
+            logits, cache = M.prefill(p, cfg, {"tokens": tokens.to(device)}, max_len)
+            counts[str(device)] = read_counts()
+            dlogits, cache = M.decode_step(p, cfg, cache, nxt.to(device),
+                                           torch.tensor(pos, device=device))
+        res[str(device)] = {"prefill logits": logits.cpu(), "decode logits": dlogits.cpu(),
+                            **{f"cache {k}": t.cpu() for k, t in leaves(cache["layers"])}}
+    cpu, card = res["cpu"], res[str(dev)]
+    errs = {k: (card[k] - cpu[k]).abs().max().item() for k in cpu}
+    worst = max(errs, key=errs.get)
+    launches, expect = counts[str(dev)], launches_per_prefill(cfg)
+    log(f"[model] {cfg.name} f32 card vs CPU, prompt {S} x {B} rows, decode at "
+        f"pos {pos}: prefill logits err {errs['prefill logits']:.3e}, decode logits "
+        f"err {errs['decode logits']:.3e}, {len(errs) - 2} cache leaves, worst "
+        f"{worst} {errs[worst]:.3e} (atol=rtol=1e-3); launches per prefill "
+        f"{launches}, expected {expect}")
+    if not all(torch.allclose(card[k], cpu[k], **MODEL_TOL) for k in cpu):
+        fail(f"{cfg.name} on the card disagrees with the CPU")
+    if counts["cpu"] != {"flash_attention": 0, "lru_scan": 0}:
+        fail(f"the CPU path launched kernels: {counts['cpu']}")
+    if launches != expect:
+        fail(f"{cfg.name} prefill launched {launches}, expected {expect}")
 
 
-def phase_serve(dev) -> dict:
-    cfg = configs.get("granite-8b")
+def phase_model(dev) -> None:
+    model_check(dev, "granite-8b", B=2, S=37, pos=[37, 30], max_len=64)
+    # longer than the smoke window of 32: the local-attention ring rolls
+    model_check(dev, "recurrentgemma-2b", B=2, S=45, pos=[45, 33], max_len=64)
+
+
+def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) -> dict:
+    """Serve 8 requests at full width with prompt lengths drawn from
+    ``prompt_range`` (the longest forced into request 0), 2-16 new tokens."""
+    cfg = configs.get(arch)
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            M.compute_dtype(cfg), dev)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in (*params["layers"].values(), params["embed"],
-                                       params["unembed"], params["final_norm"]))
-    log(f"[serve] granite-8b {cfg.num_layers} x {cfg.d_model}, {n_params / 1e9:.3f} B "
+    n_params = sum(t.numel() for _, t in leaves(params))
+    log(f"[serve] {arch} {cfg.num_layers} x {cfg.d_model}, {n_params / 1e9:.3f} B "
         f"params in {cfg.dtype}, made on the card in "
         f"{time.perf_counter() - t0:.3f} s (set-up)")
-    engine = ServeEngine(cfg, params, max_batch=4, max_len=1024, device=dev)
+    engine = ServeEngine(cfg, params, max_batch=4, max_len=max_len, device=dev)
 
     stats = {"prefill_s": [], "decode_s": [], "finite": True}
     prefill, decode = engine.prefill, engine.decode
@@ -245,31 +378,31 @@ def phase_serve(dev) -> dict:
     steps0 = engine.steps_run
 
     rng = np.random.default_rng(0)
-    lengths = rng.integers(100, 341, 8)
-    lengths[0] = 340                      # the shape the kernel is timed at
+    lengths = rng.integers(prompt_range[0], prompt_range[1] + 1, 8)
+    lengths[0] = prompt_range[1]          # the longest shape the kernels are timed at
     max_new = rng.integers(2, 17, 8)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lengths]
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_kernel.launches = 0   # count the main path's run only
+    reset_counts()                        # count the main path's run only
     t0 = time.perf_counter()
     rids = [engine.submit(p, max_new_tokens=int(n)) for p, n in zip(prompts, max_new)]
     engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention_kernel.launches
+    launches = read_counts()
     done = [engine.requests[r] for r in rids]
     tokens = sum(len(r.generated) for r in done)
     n_prefill, n_steps = len(stats["prefill_s"]), engine.steps_run - steps0
     peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] {len(done)} requests, prompts {sorted(int(n) for n in lengths)}, "
-        f"max_new {[int(n) for n in max_new]}")
-    log(f"[serve] wall {wall:.4f} s: {n_prefill} prefills, mean "
+    log(f"[serve] {arch}: {len(done)} requests, prompts "
+        f"{sorted(int(n) for n in lengths)}, max_new {[int(n) for n in max_new]}")
+    log(f"[serve] {arch}: wall {wall:.4f} s: {n_prefill} prefills, mean "
         f"{1e3 * statistics.mean(stats['prefill_s']):.3f} ms per request; "
         f"{n_steps} decode steps (batch 4), mean "
         f"{1e3 * statistics.mean(stats['decode_s']):.3f} ms, median "
         f"{1e3 * statistics.median(stats['decode_s']):.3f} ms per step; "
         f"{tokens} tokens, {tokens / wall:.2f} tokens/s; peak memory "
-        f"{peak / 2**30:.3f} GiB; flash_attention launches {launches}")
+        f"{peak / 2**30:.3f} GiB; launches {launches}")
     log(f"[serve] card during run: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     if not all(r.done for r in done):
@@ -278,13 +411,15 @@ def phase_serve(dev) -> dict:
         fail("a request generated more tokens than its budget")
     if not stats["finite"]:
         fail("non-finite logits")
-    if n_prefill != len(done) or launches != cfg.num_layers * n_prefill:
-        fail(f"flash_attention launches {launches} != {cfg.num_layers} x {n_prefill} prefills")
+    expect = {k: n * n_prefill for k, n in launches_per_prefill(cfg).items()}
+    if n_prefill != len(done) or launches != expect:
+        fail(f"{arch}: launches {launches} != {expect} for {n_prefill} prefills")
     with torch.inference_mode():                # greedy first token, request alone
-        logits, _ = M.prefill(params, cfg, {"tokens": torch.tensor([prompts[0]], device=dev)}, 1024)
+        logits, _ = M.prefill(params, cfg, {"tokens": torch.tensor([prompts[0]], device=dev)},
+                              max_len)
     if int(torch.argmax(logits[0])) != done[0].generated[0]:
         fail("first token of request 0 differs from its single-request prefill")
-    return {"launches": launches, "engine": engine, "prompts": prompts,
+    return {"arch": arch, "launches": launches, "engine": engine, "prompts": prompts,
             "max_new": max_new, "stats": stats, "wall_s": wall,
             "tokens": tokens, "steps": n_steps}
 
@@ -297,7 +432,7 @@ def phase_profile(serve: dict) -> None:
     slows the host, so this overstates idling) and against phase 5's untraced
     wall for the same work (1 - kernel time / untraced wall; kernel times do
     not change under tracing)."""
-    engine, stats = serve["engine"], serve["stats"]
+    engine, stats, arch = serve["engine"], serve["stats"], serve["arch"]
 
     def labelled(fn, name):
         def run(*args):
@@ -320,7 +455,7 @@ def phase_profile(serve: dict) -> None:
     tokens = sum(len(engine.requests[r].generated) for r in rids)
     steps = engine.steps_run - steps0
     if (tokens, steps) != (serve["tokens"], serve["steps"]):
-        fail(f"traced run served {tokens} tokens in {steps} steps, phase 5 "
+        fail(f"{arch}: traced run served {tokens} tokens in {steps} steps, phase 5 "
              f"{serve['tokens']} in {serve['steps']}")
     spans = tuple(untraced_us)
     events = prof.key_averages()
@@ -329,7 +464,7 @@ def phase_profile(serve: dict) -> None:
                if e.device_type == DeviceType.CUDA and e.key not in spans]
     busy_us = sum(e.self_device_time_total for e in kernels)
     untraced_wall_us = serve["wall_s"] * 1e6
-    log(f"[profile] {len(rids)} requests, {steps} decode steps: kernels busy "
+    log(f"[profile] {arch}: {len(rids)} requests, {steps} decode steps: kernels busy "
         f"{busy_us / 1e3:.3f} ms; traced wall {wall_us / 1e3:.3f} ms (device idle "
         f"{1 - busy_us / wall_us:.1%}); untraced wall (phase 5) "
         f"{untraced_wall_us / 1e3:.3f} ms (device idle "
@@ -337,32 +472,58 @@ def phase_profile(serve: dict) -> None:
     for e in events:
         if e.key in spans and e.device_type == DeviceType.CPU:
             dev_us = e.device_time_total / e.count
-            log(f"[profile] {e.key}: {e.count} calls, per call: untraced "
+            log(f"[profile] {arch} {e.key}: {e.count} calls, per call: untraced "
                 f"(phase 5) {untraced_us[e.key] / 1e3:.3f} ms, traced host "
                 f"{e.cpu_time_total / e.count / 1e3:.3f} ms, kernels "
                 f"{dev_us / 1e3:.3f} ms; device idle share of an untraced call "
                 f"{1 - dev_us / untraced_us[e.key]:.1%}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"[profile] kernel {e.self_device_time_total / 1e3:9.3f} ms "
+        log(f"[profile] {arch} kernel {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.self_device_time_total / max(busy_us, 1):6.1%} x{e.count:<5} {e.key[:90]}")
+
+
+def serve_and_profile(dev, arch: str, **kw) -> dict:
+    """Phases 5 and 6 for one arch; frees its weights and cache after."""
+    serve = phase_serve(dev, arch, **kw)
+    phase_profile(serve)
+    launches = serve["launches"]
+    serve.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] {arch} served and profiled at {time.perf_counter() - T_START:.1f} s")
+    return launches
+
+
+def record(name: str, source: str, replaces: str, launches: int, rec: dict,
+           **extra) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "shape": rec["shape"], **extra}
 
 
 def main() -> int:
     kind = phase_device()
     dev = torch.device("cuda")
     phase_build()
-    rec = phase_kernels(dev)
+    recs = phase_kernels(dev)
+    log(f"[time] kernels checked at {time.perf_counter() - T_START:.1f} s")
     phase_model(dev)
-    serve = phase_serve(dev)
-    phase_profile(serve)
-    kernels = [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
-        "launches": serve["launches"], "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-    }]
+    granite = serve_and_profile(dev, "granite-8b", max_len=1024, prompt_range=(100, 340))
+    rg = serve_and_profile(dev, "recurrentgemma-2b", max_len=4096,
+                           prompt_range=(100, 2500))
+    kernels = [
+        record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:79",
+               granite["flash_attention"] + rg["flash_attention"], recs["flash"]["d128"],
+               launches_by_path={"granite-8b": granite["flash_attention"],
+                                 "recurrentgemma-2b": rg["flash_attention"]},
+               d256=recs["flash"]["d256"]),
+        record("lru_scan", "src/repro_torch/csrc/lru_scan.cu",
+               "src/repro/kernels/rglru/kernel.py:49", rg["lru_scan"], recs["lru"]),
+    ]
+    log(f"[time] total {time.perf_counter() - T_START:.1f} s")
     log(nvidia_smi("name,power.limit"))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,9 @@
 """Model configuration: the port's own copy of ``repro.configs.base``.
 
-The fields the ported dense family reads, with the reference
+The fields the ported dense and hybrid families read, with the reference
 ``ModelConfig``'s names and defaults, so a config maps one to one between
 the two packages. The fields of the families not ported yet (MoE, SSM,
-hybrid, encoder-decoder, frontends) come with those families. The
+encoder-decoder, frontends) come with those families. The
 parameter count is taken over the port's own ``ParamSpec`` tree (the
 reference counts over its JAX one).
 """
@@ -20,7 +20,7 @@ __all__ = ["ModelConfig"]
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense (the only family ported so far)
+    family: str                     # dense | hybrid (the families ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -31,14 +31,22 @@ class ModelConfig:
 
     # attention
     attention: str = "full"         # full | swa
-    window: int = 4096              # sliding window (attention == "swa")
+    window: int = 4096              # sliding window (attention == "swa" / local)
     qkv_bias: bool = False
+
+    # recurrent mixer (hybrid family; the ssm family will read conv_width too)
+    conv_width: int = 4
+
+    # hybrid (recurrentgemma): repeating block pattern
+    block_pattern: tuple = ()       # e.g. ("rglru", "rglru", "local_attn")
+    lru_width: int = 0
 
     # misc
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    scan_layers: bool = True        # stacked (L, ...) layers when all kinds match
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:

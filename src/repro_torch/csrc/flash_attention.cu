@@ -35,7 +35,12 @@
 // bandwidth and FMA issue, far above either bound; wgmma/TMA tiles are the
 // later step.
 //
-// Accepts float32 and bfloat16, D in {16, 32, 64, 128}, any Sq, Sk >= 1,
+// At D = 256 (recurrentgemma's local attention: H=10, K=1, window 2048)
+// the staging takes 213,760 bytes of shared memory, under the 232,448-byte
+// opt-in limit, so one CTA runs on each SM, and the accumulator holds
+// RPT x D/16 = 64 floats per thread.
+//
+// Accepts float32 and bfloat16, D in {16, 32, 64, 128, 256}, any Sq, Sk >= 1,
 // causal or not, optional window (window <= 0 means none). The Python
 // wrapper validates shapes, dtypes and contiguity before calling.
 
@@ -240,6 +245,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
     case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,7 +2,8 @@
 
 A JAX tree here is a nested dict of arrays (``jax.Array`` or numpy; anything
 ``np.asarray`` takes) with the same keys as the port's trees, which keep the
-reference's stacked layout. This module imports no JAX: it goes through
+reference's layouts (stacked ``(L, ...)`` leaves, or unrolled ``layer_{i}``
+subtrees). This module imports no JAX: it goes through
 numpy, so the tests can hand both packages the same weights.
 """
 

@@ -2,12 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --full --requests 12 --max-batch 4 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-2b --full --max-len 4096
 
 Runs on the CUDA card by default, with weights made on the card from
-``--seed`` in the config's dtype (bf16 for granite-8b; ``--full`` is the
-published width). ``--device cpu`` serves on the CPU in float32, as the
-reference launcher does off the accelerator. With no card and no
-``--device cpu`` it raises.
+``--seed`` in the config's dtype (bf16 for both archs; ``--full`` is the
+published width, otherwise the smoke width). ``--device cpu`` serves on the
+CPU in float32, as the reference launcher does off the accelerator. With no
+card and no ``--device cpu`` it raises.
 """
 
 from __future__ import annotations

@@ -1,10 +1,13 @@
 """Model assembly: param shapes, prefill and decode steps (port of
-``repro.models.model`` for the dense family).
+``repro.models.model`` for the dense and hybrid families).
 
-Parameters and caches keep the reference's stacked layout: every per-layer
-leaf has a leading ``num_layers`` dim, so JAX trees map one to one (see
-:mod:`repro_torch.interop`). ``lax.scan`` over layers becomes a Python loop
-over the layer index. The decode cache is updated in place.
+Parameters and caches keep the reference's layouts, so JAX trees map one to
+one (see :mod:`repro_torch.interop`). When every layer has one kind (and
+``scan_layers``), each per-layer leaf is stacked with a leading
+``num_layers`` dim and ``lax.scan`` over layers becomes a Python loop over
+the layer index. Otherwise (recurrentgemma: rglru, rglru, local_attn) the
+stack is unrolled into ``{"layer_{i}": ...}`` subtrees, one per layer. The
+decode cache is updated in place.
 """
 
 from __future__ import annotations
@@ -13,9 +16,10 @@ import torch
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import ParamSpec, init_tree, rms_norm, take_embedding
+from repro_torch.models.rglru import rglru_cache_shapes
 
 __all__ = ["param_shapes", "init_params", "cache_shapes", "init_cache",
-           "prefill", "decode_step", "compute_dtype"]
+           "prefill", "decode_step", "compute_dtype", "uniform_scan"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -24,8 +28,10 @@ def compute_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _stacked_kind(cfg) -> str:
-    return tfm.layer_kinds(cfg)[0]
+def uniform_scan(cfg) -> bool:
+    """True when the layers are stacked (L, ...) leaves, False when they are
+    unrolled ``layer_{i}`` subtrees (the reference's ``_uniform_scan``)."""
+    return cfg.scan_layers and len(set(tfm.layer_kinds(cfg))) == 1
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -34,6 +40,7 @@ def _layer(tree: dict, i: int) -> dict:
 
 # --------------------------------------------------------------------- specs
 def param_shapes(cfg) -> dict:
+    kinds = tfm.layer_kinds(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     specs: dict = {
         "embed": ParamSpec((V, D), ("vocab", "embed"), init="embed"),
@@ -41,8 +48,12 @@ def param_shapes(cfg) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((D, V), ("embed", "vocab"))
-    block = tfm.block_specs(cfg, _stacked_kind(cfg))
-    specs["layers"] = {k: s.with_prefix(cfg.num_layers) for k, s in block.items()}
+    if uniform_scan(cfg):
+        block = tfm.block_specs(cfg, kinds[0])
+        specs["layers"] = {k: s.with_prefix(cfg.num_layers) for k, s in block.items()}
+    else:
+        specs["layers"] = {f"layer_{i}": tfm.block_specs(cfg, k)
+                           for i, k in enumerate(kinds)}
     return specs
 
 
@@ -53,20 +64,38 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
 
 
 # -------------------------------------------------------------------- cache
+def _layer_cache_shapes(cfg, kind: str, batch: int, max_len: int, dtype) -> dict:
+    if kind == "rglru":
+        return rglru_cache_shapes(cfg, batch, dtype)
+    slots = max_len
+    if kind == "local_attn" or cfg.attention == "swa":
+        slots = min(cfg.window, max_len)
+    shape = (batch, slots, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
 def cache_shapes(cfg, batch: int, max_len: int) -> dict:
-    """Nested {name: (shape, dtype)} decode-cache description, in the compute
-    dtype."""
+    """Nested {name: (shape, dtype)} decode-cache description; K/V and the
+    conv tail in the compute dtype, the RG-LRU state in f32."""
     dtype = compute_dtype(cfg)
-    _stacked_kind(cfg)
-    slots = min(cfg.window, max_len) if cfg.attention == "swa" else max_len
-    shape = (cfg.num_layers, batch, slots, cfg.num_kv_heads, cfg.head_dim)
-    return {"layers": {"k": (shape, dtype), "v": (shape, dtype)}}
+    kinds = tfm.layer_kinds(cfg)
+    if uniform_scan(cfg):
+        per = _layer_cache_shapes(cfg, kinds[0], batch, max_len, dtype)
+        return {"layers": {k: ((cfg.num_layers, *shape), dt)
+                           for k, (shape, dt) in per.items()}}
+    return {"layers": {f"layer_{i}": _layer_cache_shapes(cfg, k, batch, max_len, dtype)
+                       for i, k in enumerate(kinds)}}
+
+
+def _zeros(tree, device):
+    if isinstance(tree, dict):
+        return {k: _zeros(v, device) for k, v in tree.items()}
+    shape, dtype = tree
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cpu") -> dict:
-    return {"layers": {name: torch.zeros(shape, dtype=dt, device=device)
-                       for name, (shape, dt) in
-                       cache_shapes(cfg, batch, max_len)["layers"].items()}}
+    return _zeros(cache_shapes(cfg, batch, max_len), device)
 
 
 # ------------------------------------------------------------ embed/unembed
@@ -86,14 +115,18 @@ def _unembed(params, cfg, x) -> torch.Tensor:
 # ------------------------------------------------------------------- decode
 def decode_step(params, cfg, cache, tokens, pos):
     """One decode step. tokens: (B, 1) int; pos: (B,) int (absolute position
-    of each row's token). Writes the new K/V into ``cache`` in place.
+    of each row's token). Updates ``cache`` in place.
     Returns (logits (B, V) float32, cache)."""
-    _stacked_kind(cfg)
+    kinds = tfm.layer_kinds(cfg)
     x = take_embedding(params["embed"], tokens, compute_dtype(cfg))
-    layers_c = cache["layers"]
-    for i in range(cfg.num_layers):
-        x = tfm.block_decode(_layer(params["layers"], i), x,
-                             _layer(layers_c, i), pos, cfg)
+    layers_p, layers_c = params["layers"], cache["layers"]
+    stacked = uniform_scan(cfg)
+    for i, kind in enumerate(kinds):
+        if stacked:
+            p_i, c_i = _layer(layers_p, i), _layer(layers_c, i)
+        else:
+            p_i, c_i = layers_p[f"layer_{i}"], layers_c[f"layer_{i}"]
+        x = tfm.block_decode(p_i, x, c_i, pos, cfg, kind)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x)[:, 0], cache
 
@@ -101,14 +134,20 @@ def decode_step(params, cfg, cache, tokens, pos):
 # ------------------------------------------------------------------ prefill
 def prefill(params, cfg, batch, max_len: int):
     """Process the prompt, build the decode cache.
-    Returns (last_logits (B, V) float32, cache with (L, B, slots, K, Dh) leaves)."""
-    _stacked_kind(cfg)
+    Returns (last_logits (B, V) float32, cache in :func:`cache_shapes`'s
+    layout)."""
+    kinds = tfm.layer_kinds(cfg)
     x = _embed_inputs(params, cfg, batch)
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, c = tfm.block_prefill(_layer(params["layers"], i), x, cfg, max_len)
-        ks.append(c["k"])
-        vs.append(c["v"])
+    layers_p = params["layers"]
+    stacked = uniform_scan(cfg)
+    caches = {}
+    for i, kind in enumerate(kinds):
+        p_i = _layer(layers_p, i) if stacked else layers_p[f"layer_{i}"]
+        x, caches[f"layer_{i}"] = tfm.block_prefill(p_i, x, cfg, kind, max_len)
+    if stacked:
+        caches = {name: torch.stack([caches[f"layer_{i}"][name]
+                                     for i in range(cfg.num_layers)])
+                  for name in caches["layer_0"]}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(params, cfg, x[:, -1:])[:, 0]
-    return logits, {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return logits, {"layers": caches}

@@ -1,16 +1,24 @@
-"""Block assembly: norm → attention → residual → norm → SwiGLU MLP →
-residual (port of ``repro.models.transformer``, layer kind ``attn``).
+"""Block assembly: norm → mixer → residual → norm → SwiGLU MLP → residual
+(port of ``repro.models.transformer``).
 
-The other kinds of the reference (local_attn, rglru, ssm, enc_attn, cross)
-and MoE / gelu MLPs belong to families this slice does not port; asking for
-them raises ``NotImplementedError`` naming their ROADMAP item.
+Layer kinds ported so far:
+  attn        causal self-attention (full or sliding window per config) + FFN
+  local_attn  sliding-window attention (hybrid archs) + FFN
+  rglru       RG-LRU recurrent mixer + FFN
+
+The other kinds of the reference (ssm, enc_attn, cross) and MoE / gelu MLPs
+belong to families not ported yet; asking for them raises
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.rglru import lru_scan
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import ParamSpec, rms_norm, swiglu
 
 __all__ = ["layer_kinds", "mlp_specs", "block_specs", "mlp_apply",
@@ -19,9 +27,9 @@ __all__ = ["layer_kinds", "mlp_specs", "block_specs", "mlp_apply",
 _ROADMAP = {
     "vlm": "Queue 1 item 4 (vlm family)", "moe": "Queue 1 item 5 (moe family)",
     "audio": "Queue 1 item 6 (audio family)",
-    "ssm": "Queue 1 item 7 (ssm family + SSD kernel)",
-    "hybrid": "Queue 1 item 8 (hybrid family + RG-LRU kernel)",
+    "ssm": "Queue 1 item 2 (training slice: ssm family + SSD kernel)",
 }
+_KINDS = ("attn", "local_attn", "rglru")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -30,6 +38,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def layer_kinds(cfg) -> list[str]:
+    if cfg.family == "hybrid":
+        pat = list(cfg.block_pattern)
+        return [pat[i % len(pat)] for i in range(cfg.num_layers)]
     if cfg.family != "dense":
         raise _not_ported(f"family {cfg.family!r}",
                           _ROADMAP.get(cfg.family, "Queue 1"))
@@ -45,11 +56,14 @@ def mlp_specs(cfg) -> dict:
 
 
 def block_specs(cfg, kind: str) -> dict:
-    if kind != "attn":
+    if kind not in _KINDS:
         raise _not_ported(f"layer kind {kind!r}", "Queue 1")
     D = cfg.d_model
     s: dict = {"pre_norm": ParamSpec((D,), ("embed",), init="ones")}
-    s.update(attn.attn_specs(cfg))
+    if kind == "rglru":
+        s.update(rglru_mod.rglru_specs(cfg))
+    else:
+        s.update(attn.attn_specs(cfg))
     s["mlp_norm"] = ParamSpec((D,), ("embed",), init="ones")
     s.update(mlp_specs(cfg))
     return s
@@ -66,16 +80,22 @@ def _ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return x + mlp_apply(p, h, cfg)
 
 
-def _window_for(cfg) -> int | None:
-    return cfg.window if cfg.attention == "swa" else None
+def _window_for(cfg, kind: str) -> int | None:
+    if kind == "local_attn" or cfg.attention == "swa":
+        return cfg.window
+    return None
 
 
 # ------------------------------------------------------------------ prefill
-def block_prefill(p: dict, x: torch.Tensor, cfg, max_len: int):
-    """Prompt pass of one block; also returns this layer's decode cache laid
-    into ``max_len`` slots (``min(window, max_len)`` for sliding window)."""
+def block_prefill(p: dict, x: torch.Tensor, cfg, kind: str, max_len: int):
+    """Prompt pass of one block; also returns this layer's decode cache:
+    K/V laid into ``max_len`` slots (``min(window, max_len)`` for a sliding
+    window), or the RG-LRU conv tail and last state."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    window = _window_for(cfg)
+    if kind == "rglru":
+        out, cache = _rglru_prefill(p, h, cfg)
+        return _ffn(p, x + out, cfg), cache
+    window = _window_for(cfg, kind)
     out, (k, v) = attn.attn_apply(p, h, cfg, window=window)
     x = x + out
     cache = _kv_to_cache(k, v, max_len if window is None else min(window, max_len))
@@ -91,17 +111,37 @@ def _kv_to_cache(k: torch.Tensor, v: torch.Tensor, slots: int) -> dict:
         v_c = torch.roll(v[:, -slots:], shift, dims=1)
     else:
         pad = (0, 0, 0, 0, 0, slots - S)     # pad dim 1 at the end
-        k_c = torch.nn.functional.pad(k, pad)
-        v_c = torch.nn.functional.pad(v, pad)
+        k_c = F.pad(k, pad)
+        v_c = F.pad(v, pad)
     return {"k": k_c, "v": v_c}
+
+
+def _rglru_prefill(p: dict, h: torch.Tensor, cfg):
+    """Recurrent mixer over the prompt. The conv cache is the last
+    conv_width - 1 rows of the pre-conv projection (left-padded with zeros
+    for a shorter prompt); the state cache is the last h, rounded to the
+    compute dtype by the scan and then widened to f32, as the reference
+    does."""
+    u = h @ p["in_x"].to(h.dtype)
+    S, tail_len = u.shape[1], cfg.conv_width - 1
+    tail = u[:, -tail_len:, :] if S >= tail_len else F.pad(u, (0, 0, tail_len - S, 0))
+    uc = rglru_mod._causal_conv(u, p["conv_w"].to(h.dtype), p["conv_b"].to(h.dtype))
+    a, b = rglru_mod._gates(p, uc)
+    hseq = lru_scan(a, b)
+    g = rglru_mod.gelu(h @ p["in_gate"].to(h.dtype))
+    out = (hseq * g) @ p["out_w"].to(h.dtype)
+    return out, {"conv": tail, "h": hseq[:, -1].float()}
 
 
 # ------------------------------------------------------------------- decode
 def block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                 cfg) -> torch.Tensor:
-    """One-token step. x: (B, 1, D); ``cache`` ({"k", "v"} of this layer) is
-    updated in place. Returns x."""
+                 cfg, kind: str) -> torch.Tensor:
+    """One-token step. x: (B, 1, D); ``cache`` (this layer's {"k", "v"} or
+    {"conv", "h"}) is updated in place. Returns x."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    x = x + attn.attn_decode(p, h, cache["k"], cache["v"], pos, cfg,
-                             window=_window_for(cfg))
+    if kind == "rglru":
+        x = x + rglru_mod.rglru_decode(p, h, cache, cfg)
+    else:
+        x = x + attn.attn_decode(p, h, cache["k"], cache["v"], pos, cfg,
+                                 window=_window_for(cfg, kind))
     return _ffn(p, x, cfg)

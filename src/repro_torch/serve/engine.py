@@ -3,7 +3,8 @@
 
 The engine owns ``max_batch`` decode slots. Requests queue FIFO; a free
 slot triggers a batch-1 prefill whose per-layer cache is spliced into row b
-of the batched (L, B, ...) cache; every ``step()`` advances all active slots
+of the batched cache (stacked (L, B, ...) leaves, or (B, ...) leaves per
+unrolled layer); every ``step()`` advances all active slots
 by one token, each at its own position. Finished slots free at once and the
 next request is admitted. Decoding is greedy (first index on ties, as
 ``jnp.argmax``).
@@ -71,10 +72,17 @@ class ServeEngine:
 
     # -------------------------------------------------------------- interns
     def _splice(self, row_cache: dict, b: int) -> None:
-        """Copy a batch-1 prefill cache (L, 1, ...) into cache row ``b``."""
+        """Copy a batch-1 prefill cache into cache row ``b``. Under
+        ``cache["layers"]`` a tensor is a stacked (L, B, ...) leaf; a dict is
+        one unrolled layer, whose leaves are (B, ...)."""
         with torch.inference_mode():
             for name, full in self.cache["layers"].items():
-                full[:, b] = row_cache["layers"][name][:, 0]
+                row = row_cache["layers"][name]
+                if isinstance(full, dict):
+                    for leaf, t in full.items():
+                        t[b] = row[leaf][0]
+                else:
+                    full[:, b] = row[:, 0]
 
     def _admit(self) -> None:
         for slot_id, slot in enumerate(self.slots):

@@ -42,6 +42,7 @@ CASES = [
     (1, 37, 37, 4, 2, 16, True, None),       # ragged: below one block
     (1, 200, 200, 4, 2, 16, True, None),     # ragged: 1.56 blocks
     (1, 100, 150, 4, 2, 32, False, None),    # ragged, Sq != Sk, non-causal
+    (1, 200, 200, 2, 1, 256, True, 64),      # recurrentgemma heads: MQA, D=256, window
 ]
 
 

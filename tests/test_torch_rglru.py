@@ -1,0 +1,185 @@
+"""Port's RG-LRU path against the JAX package, on the same numpy inputs and
+carried weights: the plain scan (the CPU path of
+``repro_torch.kernels.rglru.lru_scan``) vs the reference Pallas kernel in
+interpret mode and vs ``lru_scan_ref``; the decode step; the recurrent
+mixer's prefill and decode; and recurrentgemma-smoke's prefill and decode
+steps with every cache leaf. The CUDA kernel itself is held against the
+plain version on the card by chip_smoke.py (phase 3)."""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.kernels.rglru.ops import lru_scan as jax_lru_scan  # noqa: E402
+from repro.kernels.rglru.ref import lru_decode_step_ref as jax_decode_ref  # noqa: E402
+from repro.kernels.rglru.ref import lru_scan_ref as jax_scan_ref  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.models import rglru as JR  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.kernels.rglru import (  # noqa: E402
+    lru_decode_step_ref, lru_scan, lru_scan_kernel)
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models import rglru as TR  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.models.layers import flatten_specs  # noqa: E402
+
+# tests/test_kernels.py TOL: float32 differs by summation order only (the
+# reference composes steps with an associative scan, the port walks them in
+# order); bf16 by the rounding of each output.
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+MODEL_TOL = dict(rtol=1e-4, atol=1e-4)   # float32 on both sides; op order differs
+
+
+def _coeffs(B, S, W, seed):
+    rng = np.random.default_rng(seed)
+    a = 1 / (1 + np.exp(-rng.standard_normal((B, S, W)))).astype(np.float32)
+    b = rng.standard_normal((B, S, W)).astype(np.float32)
+    return a.astype(np.float32), b
+
+
+@pytest.mark.parametrize("B,S,W", [
+    (1, 1, 64),       # one step
+    (3, 5, 16),
+    (2, 77, 64),      # ragged against the reference's 128-step chunk
+    (1, 200, 130),    # W not a multiple of 128, two chunks, ragged S
+    (1, 256, 128),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_scan_matches_pallas_and_ref(B, S, W, dtype):
+    a, b = _coeffs(B, S, W, seed=B + S + W)
+    ja, jb = jnp.asarray(a, dtype), jnp.asarray(b, dtype)
+    pallas = jax_lru_scan(ja, jb, use_pallas=True)
+    ref = jax_scan_ref(ja, jb)
+    out = lru_scan(*(torch.from_numpy(x).to(getattr(torch, dtype)) for x in (a, b)))
+    assert out.dtype == getattr(torch, dtype) and out.shape == (B, S, W)
+    out = out.float().numpy()
+    np.testing.assert_allclose(out, np.asarray(pallas, np.float32), **TOL[dtype])
+    np.testing.assert_allclose(out, np.asarray(ref, np.float32), **TOL[dtype])
+
+
+def test_decode_step_matches_ref():
+    a, b = _coeffs(3, 1, 32, seed=5)
+    h = np.random.default_rng(6).standard_normal((3, 32)).astype(np.float32)
+    ref = jax_decode_ref(jnp.asarray(h), jnp.asarray(a[:, 0]), jnp.asarray(b[:, 0]))
+    out = lru_decode_step_ref(*(torch.from_numpy(np.ascontiguousarray(x))
+                                for x in (h, a[:, 0], b[:, 0])))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL["float32"])
+
+
+def test_kernel_refuses_cpu_tensors():
+    a, b = (torch.from_numpy(x) for x in _coeffs(1, 4, 8, seed=0))
+    with pytest.raises(ValueError, match="CUDA"):
+        lru_scan_kernel(a, b)
+
+
+# ------------------------------------------------------------------- model
+@pytest.fixture(scope="module")
+def smoke():
+    jcfg = jconfigs.get_smoke("recurrentgemma-2b").replace(dtype="float32")
+    tcfg = tconfigs.get_smoke("recurrentgemma-2b").replace(dtype="float32")
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, tcfg, jparams, interop.to_torch(jparams)
+
+
+def _close(ours, ref, tol=MODEL_TOL):
+    np.testing.assert_allclose(interop.to_numpy(ours), np.asarray(ref), **tol)
+
+
+def _close_tree(ours, ref):
+    assert set(ours) == set(ref)
+    for key in ours:
+        if isinstance(ours[key], dict):
+            _close_tree(ours[key], ref[key])
+        else:
+            _close(ours[key], ref[key])
+
+
+def _jax_shapes(cfg):
+    from repro.models.layers import ParamSpec as JSpec
+    flat = jax.tree_util.tree_flatten_with_path(
+        JM.param_shapes(cfg), is_leaf=lambda x: isinstance(x, JSpec))[0]
+    return {tuple(k.key for k in path): tuple(spec.shape) for path, spec in flat}
+
+
+@pytest.mark.parametrize("which", ["get", "get_smoke"])
+def test_param_shapes_match_reference(which):
+    jcfg = getattr(jconfigs, which)("recurrentgemma-2b")
+    tcfg = getattr(tconfigs, which)("recurrentgemma-2b")
+    ours = {path: tuple(s.shape) for path, s in flatten_specs(TM.param_shapes(tcfg))}
+    assert ours == _jax_shapes(jcfg)
+    assert TT.layer_kinds(tcfg) == JT.layer_kinds(jcfg)
+
+
+def test_param_count_full_width():
+    cfg = tconfigs.get("recurrentgemma-2b")
+    assert cfg.param_count() == 2_894_481_920
+    assert TT.layer_kinds(cfg).count("rglru") == 18
+    assert TT.layer_kinds(cfg).count("local_attn") == 8
+
+
+@pytest.mark.parametrize("S", [2, 9])      # shorter and longer than the conv tail
+def test_rglru_prefill_and_decode_match(smoke, S):
+    jcfg, tcfg, jparams, tparams = smoke
+    jp, tp = jparams["layers"]["layer_0"], tparams["layers"]["layer_0"]
+    rng = np.random.default_rng(S)
+    x = rng.standard_normal((2, S, jcfg.d_model)).astype(np.float32)
+    jout, jcache = JT._rglru_prefill(jp, jnp.asarray(x), jcfg)
+    with torch.inference_mode():
+        tout, tcache = TT._rglru_prefill(tp, torch.from_numpy(x), tcfg)
+    _close(tout, jout)
+    _close_tree(tcache, jcache)
+    assert tcache["h"].dtype == torch.float32
+    for step in range(3):
+        xt = rng.standard_normal((2, 1, jcfg.d_model)).astype(np.float32)
+        jout, jcache = JR.rglru_decode(jp, jnp.asarray(xt), jcache, jcfg)
+        with torch.inference_mode():
+            tout = TR.rglru_decode(tp, torch.from_numpy(xt), tcache, tcfg)
+        _close(tout, jout)
+        _close_tree(tcache, jcache)
+
+
+def test_prefill_and_mixed_position_decode(smoke):
+    """A prompt longer than the window of 32: the local-attention K/V cache
+    rolls into its ring at prefill and wraps again in decode."""
+    jcfg, tcfg, jparams, tparams = smoke
+    assert jcfg.window == 32
+    B, S, max_len = 2, 45, 64
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, jcfg.vocab_size, (B, S))
+    jl, jc = JM.prefill(jparams, jcfg, {"tokens": jnp.asarray(tokens)}, max_len)
+    with torch.inference_mode():
+        tl, tc = TM.prefill(tparams, tcfg, {"tokens": torch.from_numpy(tokens)}, max_len)
+    _close(tl, jl)
+    _close_tree(tc, jc)
+    assert tc["layers"]["layer_2"]["k"].shape == (B, 32, 1, 16)
+    pos = np.array([S, S - 20])                    # rows at different depths
+    for step in range(3):
+        nxt = rng.integers(0, jcfg.vocab_size, (B, 1))
+        jl, jc = JM.decode_step(jparams, jcfg, jc, jnp.asarray(nxt),
+                                jnp.asarray(pos + step))
+        with torch.inference_mode():
+            tl, tc = TM.decode_step(tparams, tcfg, tc, torch.from_numpy(nxt),
+                                    torch.from_numpy(pos + step))
+        _close(tl, jl)
+        _close_tree(tc, jc)
+
+
+def test_unrolled_cache_layout(smoke):
+    _, tcfg, _, _ = smoke
+    assert not TM.uniform_scan(tcfg)
+    assert TM.uniform_scan(tconfigs.get_smoke("granite-8b"))
+    cache = TM.init_cache(tcfg, 3, 48)["layers"]
+    assert sorted(cache) == [f"layer_{i}" for i in range(5)]
+    assert cache["layer_0"]["conv"].shape == (3, 3, 64)
+    assert cache["layer_0"]["h"].dtype == torch.float32
+    assert cache["layer_2"]["v"].shape == (3, 32, 1, 16)

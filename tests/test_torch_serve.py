@@ -30,9 +30,12 @@ def _requests():
     return reqs
 
 
-def test_greedy_tokens_match_jax_engine():
-    jcfg = jconfigs.get_smoke("granite-8b").replace(dtype="float32")
-    tcfg = tconfigs.get_smoke("granite-8b").replace(dtype="float32")
+@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b"])
+def test_greedy_tokens_match_jax_engine(arch):
+    """Prompts of 3-40 tokens: the longest pass recurrentgemma-smoke's
+    window of 32, so its local-attention rings roll at prefill."""
+    jcfg = jconfigs.get_smoke(arch).replace(dtype="float32")
+    tcfg = tconfigs.get_smoke(arch).replace(dtype="float32")
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
     mesh = Mesh(np.array(jax.devices()).reshape(1, 1), ("data", "model"))
     jeng = JaxEngine(jcfg, mesh, shd.make_rules(multi_pod=False), jparams,
@@ -51,17 +54,22 @@ def test_greedy_tokens_match_jax_engine():
     assert len(tdone[-1].generated) < 12          # the max_len - 1 stop fired
 
 
-def test_launcher_runs_on_cpu(capsys):
-    done = launch_serve.main(["--device", "cpu", "--requests", "3",
+@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b"])
+def test_launcher_runs_on_cpu(capsys, arch):
+    done = launch_serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
                               "--max-len", "32", "--max-new", "4"])
     assert len(done) == 3 and all(r.done and r.generated for r in done)
-    assert "device=cpu served 3 requests" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "device=cpu served 3 requests" in out
+    assert f"arch={tconfigs.get_smoke(arch).name}" in out
 
 
 def test_no_card_and_no_cpu_flag_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--arch", "recurrentgemma-2b", "--requests", "1"])
     cfg = tconfigs.get_smoke("granite-8b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(cfg, {}, max_batch=1, max_len=8)
