@@ -9,12 +9,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                 one nvcc per source, all started together;
   3. kernels  — holds each kernel against its plain PyTorch version on the
                 card, on seeded inputs (flash attention at head_dim 128 and
-                256, the RG-LRU scan), and times it beside the plain version,
-                the matching PyTorch library call where there is one and its
-                roofline bound;
+                256, the RG-LRU scan, the SSD scan), and times it beside the
+                plain version, the matching PyTorch library call where there
+                is one and its roofline bound; holds the SSD kernel's
+                gradient rule (autograd through the Function) against
+                autograd through the plain version, and times it;
   4. model    — granite-smoke and recurrentgemma-smoke in float32 on the card
                 against the same seeded weights on the CPU: prefill, decode
                 and every cache leaf, with the kernel launches per prefill;
+                mamba2-smoke training in float32, card against CPU: the loss
+                and every gradient leaf of one step, then a 3-step loss
+                curve, with the SSD launches per step;
   5. serving  — granite-8b at full width (36 x 4096, bf16), then
                 recurrentgemma-2b at full width (26 layers, 2560 wide, bf16),
                 weights made on the card from a seed, each serving 8 requests
@@ -23,7 +28,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   6. profile  — after each serving run, the same 8 requests served again under
                 torch.profiler: host and device time of the prefill and decode
                 spans, the device's idle share, and the kernels that take the
-                device time.
+                device time;
+  7. training — mamba2-130m at full width (24 layers, d_model 768, bf16
+                activations over f32 master params and moments) trained for
+                6 steps of 8 x 2048 tokens through train_loop, the SSD launch
+                count set to 0 just before and read just after (24 per step);
+                loss per step, ms/step, tokens/s, peak memory; then one more
+                step of the same state under torch.profiler: kernel time by
+                name, the SSD kernel's and the gradient rule's shares, and
+                the device's idle share.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel record. Imports nothing of JAX or of the JAX package.
 """
@@ -32,6 +45,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -52,9 +66,16 @@ from repro_torch.kernels.flash_attention import attention_ref, flash_attention_k
 from repro_torch.kernels.flash_attention import kernel as flash_module  # noqa: E402
 from repro_torch.kernels.rglru import kernel as lru_module  # noqa: E402
 from repro_torch.kernels.rglru import lru_scan_kernel, lru_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd import kernel as ssd_module  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import ssd_kernel, ssd_ref, ssd_vjp  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.parallel.steps import init_train_state, make_train_step  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.data.pipeline import make_batch  # noqa: E402
+from repro_torch.train.loop import train_loop  # noqa: E402
+from repro_torch.train.optimizer import OptConfig  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
@@ -62,7 +83,9 @@ PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # Kernel vs plain version: float32 differs by summation order only; bf16
-# by the rounding of the output (and of P inside the kernel's sums).
+# by the rounding of the output (and of P inside the flash kernel's sums).
+# The SSD scan's cum, which exp(cum_i - cum_j) amplifies, is summed alike on
+# both sides (in f64, rounded once), so there too only matmul sums differ.
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 # The scan and its plain version do the same f32 steps in the same order
@@ -146,17 +169,28 @@ def leaves(tree, prefix=""):
 def reset_counts() -> None:
     flash_attention_kernel.launches = 0
     lru_scan_kernel.launches = 0
+    ssd_kernel.launches = 0
 
 
 def read_counts() -> dict:
     return {"flash_attention": flash_attention_kernel.launches,
-            "lru_scan": lru_scan_kernel.launches}
+            "lru_scan": lru_scan_kernel.launches,
+            "ssd_scan": ssd_kernel.launches}
+
+
+NO_LAUNCHES = {"flash_attention": 0, "lru_scan": 0, "ssd_scan": 0}
 
 
 def launches_per_prefill(cfg) -> dict:
     kinds = tfm.layer_kinds(cfg)
     return {"flash_attention": sum(k in ("attn", "local_attn") for k in kinds),
-            "lru_scan": kinds.count("rglru")}
+            "lru_scan": kinds.count("rglru"), "ssd_scan": 0}
+
+
+def launches_per_train_step(cfg) -> dict:
+    """One SSD launch per ssm layer in each step's forward; the backward is
+    the plain gradient rule and launches nothing."""
+    return {**NO_LAUNCHES, "ssd_scan": tfm.layer_kinds(cfg).count("ssm")}
 
 
 # --------------------------------------------------------------------- phases
@@ -174,7 +208,7 @@ def phase_device() -> str:
 
 def phase_build():
     t0 = time.perf_counter()
-    modules = (flash_module, lru_module)
+    modules = (flash_module, lru_module, ssd_module)
     with ThreadPoolExecutor(len(modules)) as pool:      # one nvcc per source
         for fut in [pool.submit(m._library) for m in modules]:
             fut.result()
@@ -293,9 +327,117 @@ def check_lru(gen, dev) -> dict:
     return timings[2500]
 
 
+def ssd_counts(B, S, H, P, N, chunk, itemsize) -> tuple[float, float]:
+    """(FLOPs, bytes) the SSD scan needs on these shapes, in its chunked form:
+    C B^T once per (batch row, chunk) over the causal (i, j) pairs (B and C
+    are shared by the heads), then per head the masked scores times u over
+    the same pairs, the inter-chunk term C h^T (every chunk after the first)
+    and the state update (every chunk before the last). Bytes: x, B, C read
+    and y written once in the compute dtype, dt and A once in f32."""
+    flops = 0
+    starts = range(0, S, min(chunk, S))
+    for c, c0 in enumerate(starts):
+        q = min(chunk, S - c0)
+        pairs = q * (q + 1) // 2
+        flops += 2 * B * pairs * N                      # C B^T
+        flops += 2 * B * H * pairs * P                  # scores u
+        if c > 0:
+            flops += 2 * B * H * q * N * P              # C h^T
+        if c < len(starts) - 1:
+            flops += 2 * B * H * q * P * N              # state update
+    nbytes = (2 * B * S * H * P + 2 * B * S * N) * itemsize + (B * S * H + H) * 4
+    return float(flops), float(nbytes)
+
+
+def ssd_inputs(gen, dev, B, S, H, P, N, dt):
+    """Reference-test statistics: x, B, C ~ N(0, 1) in ``dt``; dt =
+    softplus(N(0, 1)) and A = -exp(N(0, 1)) in f32."""
+    x = torch.randn((B, S, H, P), generator=gen, device=dev).to(dt)
+    dts = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=dev))
+    Bm = torch.randn((B, S, N), generator=gen, device=dev).to(dt)
+    Cm = torch.randn((B, S, N), generator=gen, device=dev).to(dt)
+    return x, dts, A, Bm, Cm
+
+
+def check_ssd(gen, dev) -> dict:
+    errs = {}
+    shapes = [(1, 1, 24, 64, 128, 256), (2, 77, 8, 16, 16, 32), (1, 31, 8, 16, 16, 32),
+              (1, 300, 3, 24, 40, 64), (2, 1000, 24, 64, 128, 256),
+              (8, 2048, 24, 64, 128, 256)]
+    for (B, S, H, P, N, chunk) in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            inputs = ssd_inputs(gen, dev, B, S, H, P, N, dt)
+            out = ssd_kernel(*inputs, chunk=chunk)
+            torch.cuda.synchronize()
+            ref = ssd_ref(*inputs, chunk=chunk)
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = out.dtype == dt and torch.allclose(out.float(), ref.float(), **TOL[dt])
+            name = f"B={B} S={S} H={H} P={P} N={N} chunk={chunk} {str(dt)[6:]}"
+            errs[(B, S, dt)] = err
+            log(f"[kernels] ssd_scan {name}: max_abs_err={err:.3e} (max |y| "
+                f"{ref.float().abs().max().item():.1f}; atol=rtol={TOL[dt]['atol']:g}) "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"ssd_scan disagrees with its plain version at {name}")
+            del inputs, out, ref
+
+    B, S, H, P, N, chunk = 8, 2048, 24, 64, 128, 256      # mamba2-130m's training shape
+    inputs = ssd_inputs(gen, dev, B, S, H, P, N, torch.bfloat16)
+    ms = time_ms(lambda: ssd_kernel(*inputs, chunk=chunk))
+    plain_ms = time_ms(lambda: ssd_ref(*inputs, chunk=chunk), iters=5)
+    flops, nbytes = ssd_counts(B, S, H, P, N, chunk, 2)
+    bound_ms, bound_by = bound(flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3)
+    shape = f"bf16 B={B} S={S} H={H} P={P} N={N} chunk={chunk}"
+    log(f"[kernels] ssd_scan {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"no library call, bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} "
+        f"GFLOP at 989 TFLOP/s, {nbytes / 1e6:.3f} MB at 3.35 TB/s), kernel at "
+        f"{bound_ms / ms:.1%} of bound")
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=errs[(B, S, torch.bfloat16)],
+                flops=flops, bytes=nbytes)
+
+
+def check_ssd_grad(gen, dev) -> dict:
+    """The gradient rule on the card: backward through the kernel's
+    autograd.Function (forward: the kernel; backward: ssd_vjp) against
+    autograd through the plain version, for all five inputs; then the
+    rule's time at the training shape."""
+    res = {}
+    for (B, S, H, P, N, chunk, dt) in ((2, 77, 8, 16, 16, 32, torch.float32),
+                                       (8, 2048, 24, 64, 128, 256, torch.bfloat16)):
+        inputs = ssd_inputs(gen, dev, B, S, H, P, N, dt)
+        g = torch.randn((B, S, H, P), generator=gen, device=dev).to(dt)
+        a = [t.detach().clone().requires_grad_() for t in inputs]
+        b = [t.detach().clone().requires_grad_() for t in inputs]
+        ssd_ops._SSDKernel.apply(*a, chunk).backward(g)
+        ssd_ref(*b, chunk=chunk).backward(g)
+        torch.cuda.synchronize()
+        name = f"B={B} S={S} H={H} P={P} N={N} chunk={chunk} {str(dt)[6:]}"
+        worst = 0.0
+        for label, ta, tb in zip(("x", "dt", "A", "Bm", "Cm"), a, b):
+            err = (ta.grad.float() - tb.grad.float()).abs().max().item()
+            worst = max(worst, err)
+            if ta.grad.dtype != tb.grad.dtype or not torch.allclose(
+                    ta.grad.float(), tb.grad.float(), **TOL[dt]):
+                fail(f"ssd gradient rule disagrees with autograd through ssd_ref "
+                     f"for {label} at {name} (err {err:.3e})")
+        log(f"[kernels] ssd_scan gradient rule {name}: all five input gradients "
+            f"agree with autograd through ssd_ref, max_abs_err={worst:.3e} "
+            f"(atol=rtol={TOL[dt]['atol']:g})")
+        res = dict(shape=name, max_abs_err=worst)
+        del a, b
+    ms = time_ms(lambda: ssd_vjp(g, *inputs, chunk=chunk), iters=5)
+    fwd_ms = time_ms(lambda: ssd_ref(*inputs, chunk=chunk), iters=5)
+    log(f"[kernels] ssd_scan gradient rule (ssd_vjp: plain recompute + autograd) "
+        f"{name}: {ms:.4f} ms per call (the plain forward alone {fwd_ms:.4f} ms)")
+    return {**res, "ms": ms}
+
+
 def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
-    return {"flash": check_flash(gen, dev), "lru": check_lru(gen, dev)}
+    return {"flash": check_flash(gen, dev), "lru": check_lru(gen, dev),
+            "ssd": check_ssd(gen, dev), "ssd_grad": check_ssd_grad(gen, dev)}
 
 
 def model_check(dev, arch: str, B: int, S: int, pos: list[int], max_len: int) -> None:
@@ -328,16 +470,65 @@ def model_check(dev, arch: str, B: int, S: int, pos: list[int], max_len: int) ->
         f"{launches}, expected {expect}")
     if not all(torch.allclose(card[k], cpu[k], **MODEL_TOL) for k in cpu):
         fail(f"{cfg.name} on the card disagrees with the CPU")
-    if counts["cpu"] != {"flash_attention": 0, "lru_scan": 0}:
+    if counts["cpu"] != NO_LAUNCHES:
         fail(f"the CPU path launched kernels: {counts['cpu']}")
     if launches != expect:
         fail(f"{cfg.name} prefill launched {launches}, expected {expect}")
+
+
+def train_check(dev) -> None:
+    """mamba2-smoke in float32, card against CPU from one set of seeded
+    params: the loss and every gradient leaf of one step, then a 3-step loss
+    curve through make_train_step, with the SSD launches per step."""
+    cfg = configs.get_smoke("mamba2-130m").replace(dtype="float32")
+    batches = [make_batch(cfg, 2, 100, seed=0, step=i) for i in range(3)]  # ragged vs chunk 32
+    res, counts = {}, {}
+    for device in ("cpu", dev):
+        # the same seeded draw on the CPU for each device (a train step
+        # updates its state in place)
+        state = to_device(init_train_state(cfg, torch.Generator().manual_seed(0)), device)
+        params = state["params"]
+        names, tensors = zip(*leaves(params))
+        for t in tensors:
+            t.requires_grad_(True)
+        reset_counts()
+        loss = M.loss_fn(params, cfg, to_device(batches[0], device))
+        grads = torch.autograd.grad(loss, tensors)
+        one = {"loss": loss.detach().cpu(),
+               **{f"grad {n}": g.cpu() for n, g in zip(names, grads)}}
+        step = make_train_step(cfg, opt=OptConfig(warmup_steps=2))
+        curve, per_step = [], []
+        for b in batches:
+            reset_counts()
+            state, metrics = step(state, to_device(b, device))
+            curve.append(metrics["loss"].item())
+            per_step.append(read_counts())
+        res[str(device)] = (one, torch.tensor(curve))
+        counts[str(device)] = per_step
+    (cpu_one, cpu_curve), (card_one, card_curve) = res["cpu"], res[str(dev)]
+    errs = {k: (card_one[k] - cpu_one[k]).abs().max().item() for k in cpu_one}
+    worst = max(errs, key=errs.get)
+    expect = launches_per_train_step(cfg)
+    log(f"[model] {cfg.name} training f32 card vs CPU, batch 2 x 100: loss "
+        f"{cpu_one['loss'].item():.6f} err {errs['loss']:.3e}, {len(errs) - 1} grad "
+        f"leaves, worst {worst} {errs[worst]:.3e}; 3-step loss curve card "
+        f"{card_curve.tolist()} CPU {cpu_curve.tolist()} (atol=rtol=1e-3); launches "
+        f"per step {counts[str(dev)]}, expected {expect}")
+    if not all(torch.allclose(card_one[k], cpu_one[k], **MODEL_TOL) for k in cpu_one):
+        fail(f"{cfg.name} training on the card disagrees with the CPU")
+    if not torch.allclose(card_curve, cpu_curve, **MODEL_TOL):
+        fail(f"{cfg.name} loss curve on the card disagrees with the CPU")
+    if any(c != NO_LAUNCHES for c in counts["cpu"]):
+        fail(f"the CPU path launched kernels: {counts['cpu']}")
+    if any(c != expect for c in counts[str(dev)]):
+        fail(f"{cfg.name} train steps launched {counts[str(dev)]}, expected {expect} each")
 
 
 def phase_model(dev) -> None:
     model_check(dev, "granite-8b", B=2, S=37, pos=[37, 30], max_len=64)
     # longer than the smoke window of 32: the local-attention ring rolls
     model_check(dev, "recurrentgemma-2b", B=2, S=45, pos=[45, 33], max_len=64)
+    train_check(dev)
 
 
 def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) -> dict:
@@ -494,6 +685,112 @@ def serve_and_profile(dev, arch: str, **kw) -> dict:
     return launches
 
 
+TRAIN = dict(steps=6, global_batch=8, seq_len=2048, seed=0)
+
+
+def phase_train(dev) -> dict:
+    """mamba2-130m at full width through train_loop, the entry point the
+    launcher and a cluster job call, on the card, 6 steps of 8 x 2048
+    tokens at --lr 3e-4; the kernel counts are set to 0 just before and read
+    just after. Step times come from the host clock between the loop's
+    per-step metric reads, each of which synchronises."""
+    cfg = configs.get("mamba2-130m")
+    opt = OptConfig(lr=3e-4)
+    stamps, losses = [], []
+
+    def on_metrics(step, m):
+        stamps.append(time.perf_counter())
+        losses.append(m["loss"])
+        log(f"[train] step {step}: loss {m['loss']:.6f} grad_norm {m['grad_norm']:.4f} "
+            f"lr {m['lr']:.3e}")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                        # count the main path's run only
+    t0 = time.perf_counter()
+    result = train_loop(cfg, opt=opt, log_every=1, on_metrics=on_metrics,
+                        device=dev, **TRAIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    steady = step_s[1:]                   # step 0 also pays cuBLAS and allocator set-up
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    expect = {k: n * TRAIN["steps"] for k, n in launches_per_train_step(cfg).items()}
+    log(f"[train] {cfg.name} {cfg.num_layers} x {cfg.d_model}, "
+        f"{cfg.param_count():,} params (f32 masters and moments), activations "
+        f"{cfg.dtype}, {TRAIN['steps']} steps of {TRAIN['global_batch']} x "
+        f"{TRAIN['seq_len']} tokens: wall {wall:.4f} s (params made on the card "
+        f"included); step 0 {1e3 * step_s[0]:.3f} ms; steps 1-{len(steady)} mean "
+        f"{1e3 * statistics.mean(steady):.3f} ms, median "
+        f"{1e3 * statistics.median(steady):.3f} ms per step, "
+        f"{tokens / statistics.mean(steady):.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.3f} GiB; launches {launches}")
+    log(f"[train] card during run: "
+        f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    if result.status != "done" or result.step != TRAIN["steps"] or len(losses) != TRAIN["steps"]:
+        fail(f"training ended {result.status} at step {result.step}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        fail(f"first loss {losses[0]:.4f} is far from ln(vocab) {math.log(cfg.vocab_size):.4f}")
+    if launches != expect:
+        fail(f"training launched {launches}, expected {expect} "
+             f"({launches_per_train_step(cfg)} per step)")
+    return {"launches": launches, "cfg": cfg, "opt": opt,
+            "step_ms": statistics.mean(steady) * 1e3}
+
+
+def phase_train_profile(dev, train: dict) -> None:
+    """One train step of mamba2-130m at full width under torch.profiler, after
+    one untraced warm-up step of the same state and batch shape: kernel time
+    by name, the SSD kernel's share, the gradient rule's share (the device
+    time under a label put around ssd_vjp for this run), and the device's
+    idle share of the traced step and of phase 7's untraced mean step."""
+    cfg, opt = train["cfg"], train["opt"]
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(1),
+                             opt=opt, device=dev)
+    step = make_train_step(cfg, opt=opt)
+    batch = to_device(make_batch(cfg, TRAIN["global_batch"], TRAIN["seq_len"],
+                                 seed=1, step=0), dev)
+    step(state, batch)[1]["loss"].item()
+    rule = ssd_ops.ssd_vjp
+
+    def labelled_rule(*args, **kw):
+        with record_function("ssd.grad_rule"):
+            return rule(*args, **kw)
+
+    ssd_ops.ssd_vjp = labelled_rule
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("train.step"):
+                t0 = time.perf_counter()
+                step(state, batch)[1]["loss"].item()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ssd_ops.ssd_vjp = rule
+    spans = ("train.step", "ssd.grad_rule")
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and e.key not in spans]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ssd_ms = sum(e.self_device_time_total for e in kernels if "ssd_fwd" in e.key) / 1e3
+    rule_ms = sum(e.device_time_total for e in events
+                  if e.key == "ssd.grad_rule" and e.device_type == DeviceType.CPU) / 1e3
+    log(f"[profile] mamba2-130m train step: kernels busy {busy_ms:.3f} ms; traced wall "
+        f"{wall_ms:.3f} ms (device idle {1 - busy_ms / wall_ms:.1%}); untraced mean step "
+        f"(phase 7) {train['step_ms']:.3f} ms (device idle "
+        f"{1 - busy_ms / train['step_ms']:.1%}); SSD kernel {ssd_ms:.3f} ms "
+        f"({ssd_ms / busy_ms:.1%}); gradient rule {rule_ms:.3f} ms ({rule_ms / busy_ms:.1%})")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[profile] mamba2-130m kernel {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.self_device_time_total / 1e3 / max(busy_ms, 1e-9):6.1%} x{e.count:<5} "
+            f"{e.key[:90]}")
+    if ssd_ms <= 0:
+        fail("the profiled train step shows no SSD kernel time")
+
+
 def record(name: str, source: str, replaces: str, launches: int, rec: dict,
            **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -513,6 +810,9 @@ def main() -> int:
     granite = serve_and_profile(dev, "granite-8b", max_len=1024, prompt_range=(100, 340))
     rg = serve_and_profile(dev, "recurrentgemma-2b", max_len=4096,
                            prompt_range=(100, 2500))
+    train = phase_train(dev)
+    phase_train_profile(dev, train)
+    log(f"[time] mamba2-130m trained and profiled at {time.perf_counter() - T_START:.1f} s")
     kernels = [
         record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:79",
@@ -522,6 +822,10 @@ def main() -> int:
                d256=recs["flash"]["d256"]),
         record("lru_scan", "src/repro_torch/csrc/lru_scan.cu",
                "src/repro/kernels/rglru/kernel.py:49", rg["lru_scan"], recs["lru"]),
+        record("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+               "src/repro/kernels/ssd/kernel.py:75", train["launches"]["ssd_scan"],
+               recs["ssd"], flops=recs["ssd"]["flops"], bytes=recs["ssd"]["bytes"],
+               gradient_rule=recs["ssd_grad"]),
     ]
     log(f"[time] total {time.perf_counter() - T_START:.1f} s")
     log(nvidia_smi("name,power.limit"))

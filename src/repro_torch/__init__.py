@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the serving data plane, for one NVIDIA H100.
+"""PyTorch/CUDA port of the data plane (serving and training), for one NVIDIA H100.
 
 The JAX package ``repro`` stays the reference; this package imports nothing
 of it (and never ``jax``) and keeps its own copies of the configs and

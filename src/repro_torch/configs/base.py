@@ -1,8 +1,8 @@
 """Model configuration: the port's own copy of ``repro.configs.base``.
 
-The fields the ported dense and hybrid families read, with the reference
-``ModelConfig``'s names and defaults, so a config maps one to one between
-the two packages. The fields of the families not ported yet (MoE, SSM,
+The fields the ported dense, hybrid and ssm families read, with the
+reference ``ModelConfig``'s names and defaults, so a config maps one to one
+between the two packages. The fields of the families not ported yet (MoE,
 encoder-decoder, frontends) come with those families. The
 parameter count is taken over the port's own ``ParamSpec`` tree (the
 reference counts over its JAX one).
@@ -20,7 +20,7 @@ __all__ = ["ModelConfig"]
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | hybrid (the families ported so far)
+    family: str                     # dense | hybrid | ssm (the families ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -30,12 +30,17 @@ class ModelConfig:
     head_dim: int = 0               # 0 → d_model // num_heads
 
     # attention
-    attention: str = "full"         # full | swa
+    attention: str = "full"         # full | swa | none
     window: int = 4096              # sliding window (attention == "swa" / local)
     qkv_bias: bool = False
 
-    # recurrent mixer (hybrid family; the ssm family will read conv_width too)
-    conv_width: int = 4
+    # SSM (mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_heads: int = 0              # 0 → d_model * ssm_expand // ssm_head_dim
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    conv_width: int = 4             # causal conv of the ssm and hybrid mixers
 
     # hybrid (recurrentgemma): repeating block pattern
     block_pattern: tuple = ()       # e.g. ("rglru", "rglru", "local_attn")
@@ -51,6 +56,10 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.family == "ssm" and self.ssm_heads == 0:
+            object.__setattr__(
+                self, "ssm_heads",
+                (self.d_model * self.ssm_expand) // self.ssm_head_dim)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,0 +1,105 @@
+"""Binding of the hand-written CUDA SSD chunked-scan kernel
+(``src/repro_torch/csrc/ssd_scan.cu``), which replaces the reference's
+Pallas kernel ``kernels/ssd/kernel.py::ssd_kernel``.
+
+The library is built with ``nvcc`` at the first launch (see
+:mod:`repro_torch.kernels.build`); importing this module builds nothing, so
+the CPU tests import it freely. :func:`ssd_kernel` takes CUDA tensors only:
+it launches the kernel or raises, and never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import build_library
+
+__all__ = ["ssd_kernel", "SOURCE"]
+
+SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "ssd_scan.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_SMEM = 232448               # the H100's opt-in shared memory per block
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = build_library(SOURCE)
+        fn = lib.repro_ssd_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.repro_ssd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.repro_ssd_smem_bytes.restype = ctypes.c_longlong
+        _lib = lib
+    return _lib
+
+
+def _check(x, dt, A, Bm, Cm) -> None:
+    named = (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm))
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name} must be on x's CUDA device, got {t.device}")
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise ValueError(f"x, Bm and Cm must share a dtype in {list(_DTYPES)}, got "
+                         f"{x.dtype}, {Bm.dtype} and {Cm.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"dt and A must be float32, got {dt.dtype} and {A.dtype}")
+    if x.dim() != 4 or min(x.shape) < 1:
+        raise ValueError(f"x must be a non-empty (B, S, H, P), got {tuple(x.shape)}")
+    Bsz, S, H, P = x.shape
+    if (dt.shape != (Bsz, S, H) or A.shape != (H,) or Bm.dim() != 3
+            or Bm.shape[:2] != (Bsz, S) or Cm.shape != Bm.shape or Bm.shape[2] < 1):
+        raise ValueError(f"shapes do not match x {tuple(x.shape)}: dt {tuple(dt.shape)} "
+                         f"(B,S,H), A {tuple(A.shape)} (H,), Bm {tuple(Bm.shape)} and "
+                         f"Cm {tuple(Cm.shape)} (B,S,N)")
+    if not (dt.is_contiguous() and A.is_contiguous()):
+        raise ValueError("dt and A must be contiguous")
+    # x, Bm and Cm may be views (strided over batch and step) of one projection
+    if x.stride(3) != 1 or x.stride(2) != P or Bm.stride(2) != 1 or Cm.stride(2) != 1:
+        raise ValueError(f"x (strides {x.stride()}) must be packed over (H, P) and "
+                         f"Bm, Cm (strides {Bm.stride()}, {Cm.stride()}) over N")
+
+
+def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+               Cm: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
+    """x: (B,S,H,P); dt: (B,S,H) f32; A: (H,) f32; Bm, Cm: (B,S,N), CUDA
+    tensors; x, Bm and Cm of one dtype (float32 or bfloat16), packed after
+    their step dim (views of one projection are read in place); dt and A
+    contiguous. Returns
+    y: (B,S,H,P) in x's dtype, the SSD scan from a zero state over chunks of
+    min(chunk, S) steps."""
+    _check(x, dt, A, Bm, Cm)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[2]
+    Q = min(chunk, S)
+    lib = _library()
+    smem = lib.repro_ssd_smem_bytes(Q, N)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"chunk {Q} x state {N} needs {smem} bytes of shared memory "
+                         f"per block, above the card's {_MAX_SMEM}")
+    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
+    # the first pass's C B^T tiles, one Q x Q f32 block per (batch row, chunk)
+    cbt = torch.empty(Bsz * -(-S // Q) * Q * Q, dtype=torch.float32, device=x.device)
+    strides = (ctypes.c_longlong * 6)(x.stride(0), x.stride(1), Bm.stride(0),
+                                      Bm.stride(1), Cm.stride(0), Cm.stride(1))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_ssd_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                                Cm.data_ptr(), y.data_ptr(), cbt.data_ptr(), Bsz, S, H,
+                                P, N, Q,
+                                _DTYPES[x.dtype], strides, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
+    ssd_kernel.launches += 1
+    return y
+
+
+ssd_kernel.launches = 0

@@ -1,0 +1,69 @@
+"""Training launcher — the end-to-end entry point behind ``--arch <id>``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
+        --full --steps 6 --global-batch 8 --seq-len 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
+
+Runs on the CUDA card by default, in the config's dtype (bf16 activations
+for mamba2-130m) over f32 master params and moments; ``--full`` is the
+published width, otherwise the smoke width. ``--device cpu`` trains on the
+CPU in float32, as the reference launcher does off the accelerator. With no
+card and no ``--device cpu`` it raises. Re-running with the same
+``--ckpt-dir`` resumes from the latest step. Only the ssm family trains so
+far (ROADMAP.md Queue 1 item 10 brings the dense and hybrid families).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from repro_torch import configs
+from repro_torch.device import resolve_device
+from repro_torch.train.loop import TrainResult, train_loop
+from repro_torch.train.optimizer import OptConfig
+
+
+def main(argv=None) -> TrainResult:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="mamba2-130m", choices=configs.ARCHS)
+    ap.add_argument("--full", action="store_true",
+                    help="full published config; default is the smoke config")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = configs.get(args.arch) if args.full else configs.get_smoke(args.arch)
+    if device.type == "cpu":
+        cfg = cfg.replace(dtype="float32")
+    print(f"arch={cfg.name} params={cfg.param_count():,} device={device} "
+          f"dtype={cfg.dtype}")
+
+    def log(step, m):
+        print(f"step {step:5d}  loss {m['loss']:.4f}  "
+              f"gnorm {m['grad_norm']:.3f}  {m['sec_per_step']:.3f}s/step")
+
+    result = train_loop(
+        cfg, steps=args.steps, global_batch=args.global_batch,
+        seq_len=args.seq_len, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every, seed=args.seed,
+        opt=OptConfig(lr=args.lr), microbatches=args.microbatches,
+        on_metrics=log, device=device)
+    print(f"status={result.status} final_step={result.step} "
+          f"final_loss={result.metrics.get('loss', float('nan')):.4f}")
+    first = result.history[0]["loss"] if result.history else float("nan")
+    last = result.metrics.get("loss", float("nan"))
+    print(f"loss {first:.4f} -> {last:.4f}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""Model assembly: param shapes, prefill and decode steps (port of
-``repro.models.model`` for the dense and hybrid families).
+"""Model assembly: param shapes, the full-sequence forward and loss
+(training; the ssm family), and the prefill and decode steps (serving; the
+dense and hybrid families). Port of ``repro.models.model``.
 
 Parameters and caches keep the reference's layouts, so JAX trees map one to
 one (see :mod:`repro_torch.interop`). When every layer has one kind (and
@@ -13,13 +14,14 @@ decode cache is updated in place.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import ParamSpec, init_tree, rms_norm, take_embedding
 from repro_torch.models.rglru import rglru_cache_shapes
 
-__all__ = ["param_shapes", "init_params", "cache_shapes", "init_cache",
-           "prefill", "decode_step", "compute_dtype", "uniform_scan"]
+__all__ = ["param_shapes", "init_params", "forward", "loss_fn", "cache_shapes",
+           "init_cache", "prefill", "decode_step", "compute_dtype", "uniform_scan"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -63,8 +65,41 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
     return init_tree(param_shapes(cfg), generator, dtype, device)
 
 
+# -------------------------------------------------------------------- trunk
+def _stack_apply(layers_p, x, cfg, kinds) -> torch.Tensor:
+    """Run the layer stack over the full sequence. A stacked (L, ...) leaf is
+    indexed per layer, so its gradient lands in the stacked leaf."""
+    stacked = uniform_scan(cfg)
+    for i, kind in enumerate(kinds):
+        p_i = _layer(layers_p, i) if stacked else layers_p[f"layer_{i}"]
+        x = tfm.block_apply(p_i, x, cfg, kind)
+    return x
+
+
+def forward(params, cfg, batch) -> torch.Tensor:
+    """Full-sequence forward. Returns logits (B, S, V) in float32. (The
+    reference also returns the MoE aux loss, 0 for every ported family.)"""
+    x = _embed_inputs(params, cfg, batch)
+    x = _stack_apply(params["layers"], x, cfg, tfm.layer_kinds(cfg))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, cfg, x)
+
+
+def loss_fn(params, cfg, batch) -> torch.Tensor:
+    """Next-token cross entropy, the mean over the B x (S - 1) predictions
+    of tokens[:, 1:], in float32."""
+    logits = forward(params, cfg, batch)
+    tokens = batch["tokens"]
+    preds = logits[:, :tokens.shape[1] - 1]
+    return F.cross_entropy(preds.reshape(-1, preds.shape[-1]),
+                           tokens[:, 1:].reshape(-1).long())
+
+
 # -------------------------------------------------------------------- cache
 def _layer_cache_shapes(cfg, kind: str, batch: int, max_len: int, dtype) -> dict:
+    if kind == "ssm":
+        raise tfm._not_ported("the decode cache of layer kind 'ssm'",
+                              tfm.MAMBA2_SERVING)
     if kind == "rglru":
         return rglru_cache_shapes(cfg, batch, dtype)
     slots = max_len

@@ -1,14 +1,18 @@
-"""Block assembly: norm → mixer → residual → norm → SwiGLU MLP → residual
+"""Block assembly: norm → mixer → residual [→ norm → SwiGLU MLP → residual]
 (port of ``repro.models.transformer``).
 
 Layer kinds ported so far:
-  attn        causal self-attention (full or sliding window per config) + FFN
-  local_attn  sliding-window attention (hybrid archs) + FFN
-  rglru       RG-LRU recurrent mixer + FFN
+  attn        causal self-attention (full or sliding window per config) + FFN;
+              prefill and decode (serving)
+  local_attn  sliding-window attention (hybrid archs) + FFN; prefill and decode
+  rglru       RG-LRU recurrent mixer + FFN; prefill and decode
+  ssm         Mamba-2 SSD mixer (no FFN — the mamba block subsumes it); the
+              full-sequence forward (training)
 
-The other kinds of the reference (ssm, enc_attn, cross) and MoE / gelu MLPs
-belong to families not ported yet; asking for them raises
-``NotImplementedError`` naming their ROADMAP item.
+The other kinds of the reference (enc_attn, cross), MoE / gelu MLPs, the
+training forward of attn/local_attn/rglru and the serving steps of ssm
+belong to ROADMAP items not done yet; asking for them raises
+``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -19,17 +23,19 @@ import torch.nn.functional as F
 from repro_torch.kernels.rglru import lru_scan
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import ParamSpec, rms_norm, swiglu
 
 __all__ = ["layer_kinds", "mlp_specs", "block_specs", "mlp_apply",
-           "block_prefill", "block_decode"]
+           "block_apply", "block_prefill", "block_decode"]
 
 _ROADMAP = {
     "vlm": "Queue 1 item 4 (vlm family)", "moe": "Queue 1 item 5 (moe family)",
     "audio": "Queue 1 item 6 (audio family)",
-    "ssm": "Queue 1 item 2 (training slice: ssm family + SSD kernel)",
 }
-_KINDS = ("attn", "local_attn", "rglru")
+DENSE_HYBRID_TRAINING = "Queue 1 item 10 (dense and hybrid training)"
+MAMBA2_SERVING = "Queue 1 item 11 (mamba2 serving)"
+_KINDS = ("attn", "local_attn", "rglru", "ssm")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -38,6 +44,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def layer_kinds(cfg) -> list[str]:
+    if cfg.family == "ssm":
+        return ["ssm"] * cfg.num_layers
     if cfg.family == "hybrid":
         pat = list(cfg.block_pattern)
         return [pat[i % len(pat)] for i in range(cfg.num_layers)]
@@ -60,6 +68,9 @@ def block_specs(cfg, kind: str) -> dict:
         raise _not_ported(f"layer kind {kind!r}", "Queue 1")
     D = cfg.d_model
     s: dict = {"pre_norm": ParamSpec((D,), ("embed",), init="ones")}
+    if kind == "ssm":
+        s.update(ssm_mod.ssm_specs(cfg))
+        return s                                     # mamba block: mixer only
     if kind == "rglru":
         s.update(rglru_mod.rglru_specs(cfg))
     else:
@@ -86,11 +97,25 @@ def _window_for(cfg, kind: str) -> int | None:
     return None
 
 
+# ------------------------------------------------------------------- apply
+def block_apply(p: dict, x: torch.Tensor, cfg, kind: str) -> torch.Tensor:
+    """Train/eval full-sequence block (the reference's ``block_apply``, whose
+    aux loss is 0 for every ported kind). Only kind ``ssm`` is ported: the
+    flash attention and RG-LRU kernels have no autograd rule yet."""
+    if kind != "ssm":
+        raise _not_ported(f"the training forward of layer kind {kind!r}",
+                          DENSE_HYBRID_TRAINING)
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    return x + ssm_mod.ssm_apply(p, h, cfg)
+
+
 # ------------------------------------------------------------------ prefill
 def block_prefill(p: dict, x: torch.Tensor, cfg, kind: str, max_len: int):
     """Prompt pass of one block; also returns this layer's decode cache:
     K/V laid into ``max_len`` slots (``min(window, max_len)`` for a sliding
     window), or the RG-LRU conv tail and last state."""
+    if kind == "ssm":
+        raise _not_ported("the prefill of layer kind 'ssm'", MAMBA2_SERVING)
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if kind == "rglru":
         out, cache = _rglru_prefill(p, h, cfg)
@@ -138,6 +163,8 @@ def block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                  cfg, kind: str) -> torch.Tensor:
     """One-token step. x: (B, 1, D); ``cache`` (this layer's {"k", "v"} or
     {"conv", "h"}) is updated in place. Returns x."""
+    if kind == "ssm":
+        raise _not_ported("the decode step of layer kind 'ssm'", MAMBA2_SERVING)
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if kind == "rglru":
         x = x + rglru_mod.rglru_decode(p, h, cache, cfg)

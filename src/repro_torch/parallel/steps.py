@@ -1,10 +1,11 @@
-"""Serving step functions on one device (port of the reference's
-``parallel/steps.py::make_prefill_step`` and ``make_serve_step``).
+"""Step functions on one device (port of the reference's
+``parallel/steps.py``): the train step, and the prefill and decode steps.
 
-The reference jits each step with sharded inputs and donates the cache.
-Here a step runs eagerly under ``torch.inference_mode`` and the decode step
-updates the cache in place, which takes the place of buffer donation. No
-sharding is ported: on one card ``constrain_logical`` is the identity.
+The reference jits each step with sharded inputs and donates the state or
+cache. Here a step runs eagerly; the train step updates the train state in
+place and the decode step the cache, which takes the place of buffer
+donation. No sharding is ported: on one card ``constrain_logical`` is the
+identity.
 """
 
 from __future__ import annotations
@@ -12,8 +13,78 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.models import transformer as tfm
+from repro_torch.train.optimizer import (OptConfig, adamw_update, init_opt, tree_leaves,
+                                         tree_unflatten)
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+__all__ = ["init_train_state", "abstract_train_state", "make_train_step",
+           "make_prefill_step", "make_serve_step"]
+
+
+# -------------------------------------------------------------- train state
+def init_train_state(cfg, generator: torch.Generator, dtype=torch.float32,
+                     opt: OptConfig | None = None, device="cpu") -> dict:
+    """f32 master params drawn from ``generator`` (which lives on ``device``),
+    zero moments and step 0: {"params", "opt": {"mu", "nu"}, "step"}."""
+    params = M.init_params(cfg, generator, dtype, device)
+    return {"params": params, "opt": init_opt(params, opt),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def abstract_train_state(cfg, dtype=torch.float32, opt: OptConfig | None = None) -> dict:
+    """The train state's structure, shapes and dtypes on the ``meta`` device
+    (nothing allocated), for restoring a checkpoint into."""
+    return init_train_state(cfg, None, dtype, opt, device="meta")
+
+
+# -------------------------------------------------------------- train step
+def make_train_step(cfg, *, opt: OptConfig | None = None, microbatches: int = 1):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    ``batch["tokens"]`` is (B, S), or (microbatches, B / microbatches, S)
+    when ``microbatches > 1``: the loss and the gradients are then averaged
+    over the microbatches, as the reference's accumulation scan does. The
+    loss runs with activations in ``cfg.dtype`` on the f32 master params
+    (each weight is cast where it is used, so its gradient flows back in
+    f32); AdamW then updates the state in place. ``metrics`` holds ``loss``,
+    ``grad_norm`` and ``lr`` as 0-d f32 tensors on the device: reading them
+    is the only synchronisation, and the caller chooses when.
+
+    Only the ssm family trains: the flash attention and RG-LRU kernels have
+    no autograd rule yet (ROADMAP.md Queue 1 item 10)."""
+    kinds = set(tfm.layer_kinds(cfg))
+    if kinds != {"ssm"}:
+        raise tfm._not_ported(f"training the {cfg.family} family (layer kinds "
+                              f"{sorted(kinds)})", tfm.DENSE_HYBRID_TRAINING)
+    opt = opt or OptConfig()
+
+    def train_step(state, batch):
+        params = state["params"]
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        mbs = [batch] if microbatches == 1 else \
+            [{k: v[i] for k, v in batch.items()} for i in range(microbatches)]
+        loss, grads = None, None
+        for mb in mbs:
+            l = M.loss_fn(params, cfg, mb)
+            g = torch.autograd.grad(l, leaves)
+            if grads is None:
+                loss, grads = l.detach(), [x.float() for x in g]
+            else:
+                loss = loss + l.detach()
+                for acc, x in zip(grads, g):
+                    acc.add_(x)
+        if microbatches > 1:
+            loss = loss * (1.0 / microbatches)
+            for acc in grads:
+                acc.mul_(1.0 / microbatches)
+        grad_tree = tree_unflatten(params, grads)
+        _, _, om = adamw_update(grad_tree, state["opt"], params, opt, state["step"])
+        state["step"] += 1
+        return state, {"loss": loss, **om}
+
+    return train_step
 
 
 def make_prefill_step(cfg, *, max_len: int):

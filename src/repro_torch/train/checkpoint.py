@@ -1,0 +1,110 @@
+"""Atomic, resumable checkpointing for train state (port of
+``repro.train.checkpoint``).
+
+Layout, the reference's: ``<dir>/step_<N:08d>/state.npz`` + ``meta.json``,
+written into a temp dir and ``os.replace``d into place, so a crash
+mid-save never corrupts the latest checkpoint; ``keep`` bounds disk use.
+Leaves are keyed by their dict path joined with ``|``
+(``params|layers|in_proj``, ``opt|mu|embed``, ``step``), the keys the JAX
+package writes, so a checkpoint written by either package resumes in the
+other: an OAR best-effort job can checkpoint and yield under one and resume
+under the other.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import tempfile
+
+import numpy as np
+import torch
+
+__all__ = ["save", "restore_latest", "latest_step", "list_steps"]
+
+_KEY_SEP = "|"
+
+
+def _flatten(tree, prefix: tuple = ()) -> dict[str, torch.Tensor]:
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flatten(tree[k], prefix + (k,)))
+        return out
+    return {_KEY_SEP.join(prefix): tree}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def save(ckpt_dir: str, state, step: int, *, keep: int = 3,
+         extra_meta: dict | None = None) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=ckpt_dir)
+    try:
+        np.savez(os.path.join(tmp, "state.npz"),
+                 **{k: _to_numpy(v) for k, v in _flatten(state).items()})
+        meta = {"step": int(step), **(extra_meta or {})}
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)              # atomic commit
+    except Exception:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    _gc(ckpt_dir, keep)
+    return final
+
+
+def _gc(ckpt_dir: str, keep: int) -> None:
+    for s in list_steps(ckpt_dir)[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"), ignore_errors=True)
+
+
+def list_steps(ckpt_dir: str) -> list[int]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    out = []
+    for name in os.listdir(ckpt_dir):
+        m = re.fullmatch(r"step_(\d+)", name)
+        if m and os.path.exists(os.path.join(ckpt_dir, name, "meta.json")):
+            out.append(int(m.group(1)))
+    return sorted(out)
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    steps = list_steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def _fill(like, flat: dict, prefix: tuple, device):
+    if isinstance(like, dict):
+        return {k: _fill(like[k], flat, prefix + (k,), device) for k in sorted(like)}
+    key = _KEY_SEP.join(prefix)
+    if key not in flat:
+        raise KeyError(f"checkpoint has no leaf {key!r}")
+    arr = flat[key]
+    if tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"checkpoint leaf {key!r} has shape {arr.shape}, "
+                         f"the state {tuple(like.shape)}")
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device, dtype=like.dtype)
+
+
+def restore_latest(ckpt_dir: str, state_like, device="cpu"):
+    """Restore the newest checkpoint into the structure and dtypes of
+    ``state_like`` (a nested dict of tensors, e.g. on the ``meta`` device),
+    on ``device``. Returns (state, step), or (None, None) when there is no
+    checkpoint."""
+    step = latest_step(ckpt_dir)
+    if step is None:
+        return None, None
+    path = os.path.join(ckpt_dir, f"step_{step:08d}", "state.npz")
+    with np.load(path) as data:
+        flat = dict(data.items())
+    return _fill(state_like, flat, (), device), step

@@ -1,7 +1,8 @@
 """Port's model against the JAX package's on the same weights (carried over
 with ``repro_torch.interop``): parameter tree shapes and count, prefill
 logits and cache, decode steps at mixed per-row positions, the ring roll of
-a prompt longer than the cache, and the port's own seeded init statistics."""
+a prompt longer than the cache, and the port's own seeded init statistics;
+and the paths not ported yet, which raise naming their ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,10 @@ from repro.models.layers import ParamSpec as JSpec  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.layers import flatten_specs  # noqa: E402
+from repro_torch.parallel.steps import make_train_step  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)   # float32 on both sides; op order differs
 
@@ -135,6 +139,27 @@ def test_interop_carries_bf16_bits_and_back():
 
 
 def test_other_families_raise_not_implemented():
-    cfg = tconfigs.get_smoke("granite-8b").replace(family="ssm")
+    cfg = tconfigs.get_smoke("granite-8b").replace(family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.param_shapes(cfg)
+
+
+def test_mamba2_serving_raises_not_implemented():
+    cfg = tconfigs.get_smoke("mamba2-130m").replace(dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    layer = {k: t[0] for k, t in params["layers"].items()}
+    x = torch.zeros(1, 4, cfg.d_model)
+    match = "ROADMAP.md Queue 1 item 11 \\(mamba2 serving\\)"
+    with pytest.raises(NotImplementedError, match=match):
+        TT.block_prefill(layer, x, cfg, "ssm", 8)
+    with pytest.raises(NotImplementedError, match=match):
+        TT.block_decode(layer, x[:, :1], {}, torch.zeros(1, dtype=torch.long), cfg, "ssm")
+    with pytest.raises(NotImplementedError, match=match):
+        ServeEngine(cfg, params, max_batch=1, max_len=8, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b"])
+def test_make_train_step_refuses_dense_and_hybrid(arch):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 10 \\(dense and hybrid training\\)"):
+        make_train_step(tconfigs.get_smoke(arch))

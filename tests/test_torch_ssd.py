@@ -1,0 +1,136 @@
+"""Port's SSD path against the JAX package, on the same numpy inputs and
+carried weights: the plain scan (the CPU path of
+``repro_torch.kernels.ssd.ssd``) vs the reference Pallas kernel in interpret
+mode and vs the reference ``ssd_ref``; the kernel's gradient rule vs
+``jax.grad`` through the reference; the ``autograd.Function`` that wraps the
+kernel; and the Mamba-2 mixer ``ssm_apply``. The CUDA kernel itself is held
+against the plain version on the card by chip_smoke.py (phase 3)."""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.kernels.ssd.ops import ssd as jax_ssd  # noqa: E402
+from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.models import ssm as JS  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import ssd, ssd_kernel, ssd_ref, ssd_vjp  # noqa: E402
+from repro_torch.models import ssm as TS  # noqa: E402
+
+# float32: the two sides differ by summation order only (the port sums cum in
+# f64 and rounds once; the reference in f32). bf16: by the rounding of each
+# output. At most 1e-4 and 2e-2.
+TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _inputs(B, S, H, P, N, seed):
+    """Reference-test statistics: x, B, C ~ N(0, 1), dt = softplus(N(0, 1)),
+    A = -exp(N(0, 1)); dt and A in f32."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    A = -np.exp(rng.standard_normal(H)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, N)).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def _torch(x, dt, A, Bm, Cm, dtype):
+    cast = lambda a: torch.from_numpy(a).to(getattr(torch, dtype))  # noqa: E731
+    return cast(x), torch.from_numpy(dt), torch.from_numpy(A), cast(Bm), cast(Cm)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 1, 2, 16, 16, 32),      # one step
+    (1, 20, 3, 16, 16, 32),     # S < chunk: one short chunk
+    (2, 77, 3, 16, 16, 32),     # B > 1, ragged last chunk
+    (1, 100, 2, 24, 40, 32),    # P, N not powers of two, ragged
+    (2, 96, 3, 12, 20, 32),     # S a multiple of chunk
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_ssd_matches_pallas_and_ref(B, S, H, P, N, chunk, dtype):
+    x, dt, A, Bm, Cm = _inputs(B, S, H, P, N, seed=B + S + P + N)
+    jin = (jnp.asarray(x, dtype), jnp.asarray(dt), jnp.asarray(A),
+           jnp.asarray(Bm, dtype), jnp.asarray(Cm, dtype))
+    pallas = jax_ssd(*jin, chunk=chunk, use_pallas=True)
+    ref = jax_ssd_ref(*jin, chunk=chunk)
+    before = ssd_kernel.launches
+    out = ssd(*_torch(x, dt, A, Bm, Cm, dtype), chunk=chunk)
+    assert ssd_kernel.launches == before          # a CPU tensor never launches
+    assert out.dtype == getattr(torch, dtype) and out.shape == (B, S, H, P)
+    out = out.float().numpy()
+    np.testing.assert_allclose(out, np.asarray(pallas, np.float32), **TOL[dtype])
+    np.testing.assert_allclose(out, np.asarray(ref, np.float32), **TOL[dtype])
+
+
+def test_kernel_refuses_cpu_tensors():
+    args = _torch(*_inputs(1, 8, 2, 16, 16, seed=0), "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel(*args, chunk=32)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 77, 3, 16, 16, 32),
+                                             (1, 40, 2, 24, 40, 16)])
+def test_gradient_rule_matches_jax_grad(B, S, H, P, N, chunk):
+    """ssd_vjp (the kernel's backward) against jax.vjp of the reference
+    ssd_ref, for all five inputs, with the same cotangent."""
+    x, dt, A, Bm, Cm = _inputs(B, S, H, P, N, seed=7)
+    g = np.random.default_rng(8).standard_normal((B, S, H, P)).astype(np.float32)
+    ref = jax.jit(lambda ct, *a: jax.vjp(lambda *b: jax_ssd_ref(*b, chunk=chunk), *a)[1](ct))(
+        jnp.asarray(g), *(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)))
+    ours = ssd_vjp(torch.from_numpy(g), *_torch(x, dt, A, Bm, Cm, "float32"), chunk=chunk)
+    for name, o, r in zip(("x", "dt", "A", "Bm", "Cm"), ours, ref):
+        r = np.asarray(r)
+        assert o.shape == r.shape, name
+        # A's gradient sums over every (b, t, p): scale the tolerance by its size
+        np.testing.assert_allclose(o.numpy(), r, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, np.abs(r).max()), err_msg=name)
+
+
+def test_autograd_function_runs_kernel_forward_and_rule_backward(monkeypatch):
+    """The Function's wiring on the CPU, with the kernel stood in for by the
+    plain version: the forward calls the kernel once, the backward calls
+    ssd_vjp and gives the gradients autograd gives through ssd_ref."""
+    calls = {"kernel": 0, "vjp": 0}
+
+    def fake_kernel(*a, chunk):
+        calls["kernel"] += 1
+        return ssd_ref(*a, chunk=chunk)
+
+    def counted_vjp(*a, **kw):
+        calls["vjp"] += 1
+        return ssd_vjp(*a, **kw)
+
+    monkeypatch.setattr(ssd_ops, "ssd_kernel", fake_kernel)
+    monkeypatch.setattr(ssd_ops, "ssd_vjp", counted_vjp)
+    inputs = _torch(*_inputs(2, 45, 3, 16, 16, seed=3), "float32")
+    a = [t.clone().requires_grad_() for t in inputs]
+    b = [t.clone().requires_grad_() for t in inputs]
+    g = torch.randn(2, 45, 3, 16, generator=torch.Generator().manual_seed(0))
+    ssd_ops._SSDKernel.apply(*a, 32).backward(g)
+    ssd_ref(*b, chunk=32).backward(g)
+    assert calls == {"kernel": 1, "vjp": 1}
+    for ta, tb in zip(a, b):
+        torch.testing.assert_close(ta.grad, tb.grad, rtol=1e-6, atol=1e-6)
+
+
+def test_ssm_apply_matches_jax():
+    jcfg = jconfigs.get_smoke("mamba2-130m").replace(dtype="float32")
+    tcfg = tconfigs.get_smoke("mamba2-130m").replace(dtype="float32")
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(1))
+    layer = {k: v[0] for k, v in jparams["layers"].items()}
+    x = np.random.default_rng(4).standard_normal((2, 70, jcfg.d_model)).astype(np.float32)
+    ref = jax.jit(JS.ssm_apply, static_argnums=2)(layer, jnp.asarray(x), jcfg)
+    out = TS.ssm_apply(interop.to_torch(layer), torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL["float32"])
