@@ -9,36 +9,55 @@
 // 0 — top-left alignment — and window qpos - kpos < window); rows with
 // l == 0 output 0.
 //
-// Design (taken from what the kernel computes, not block by block):
-//   * one CTA per (q tile of BQ rows, query head, batch row); a loop inside
-//     the CTA walks the kv tiles, which takes the place of the TPU grid's
+// Two routes, chosen by dtype:
+//   * bfloat16: flash_fwd_tc_kernel, on the tensor cores (below);
+//   * float32: flash_fwd_kernel, on the FP32 FMA pipes. f32 is used only by
+//     the float32 parity checks, whose 1e-4 tolerance TF32 (10-bit
+//     mantissa) would break, so that route keeps full f32 products.
+//
+// Shared by both (taken from what the kernel computes, not block by block):
+//   * one CTA per (q tile, query head, batch row); a loop inside the CTA
+//     walks the kv tiles, which takes the place of the TPU grid's
 //     sequential `arbitrary` kv axis. Causal and window masks also bound
 //     that loop, so tiles that are wholly masked are never loaded.
 //   * tensors are read in the model's (B, S, H, D) layout straight from
 //     device memory: no transposes, no repeated kv heads, no padding copies.
 //     Ragged edges (Sq, Sk not multiples of the tile) are masked in the
-//     kernel.
-//   * Q, K, V and the probability tile P are staged in shared memory as
-//     f32 (rows padded by one word against bank conflicts); S = Q K^T and
-//     O += P V are FMA loops, 4 query rows x 4 keys (S) and 4 rows x D/16
-//     columns (O) per thread. Each query row is owned by the 16 lanes of a
-//     half-warp, so the row max and row sum are warp shuffles.
-//   * m, l and the O accumulator stay in registers for the whole kv loop;
-//     O is written once, in the input dtype.
+//     kernel. m, l and O stay in registers; O is written once.
 //
-// What bounds it on the H100 at the serving slice's shapes (B=1, H=32, K=8,
-// D=128, bf16, causal, S=100..340): the work is ~2*S^2*D*H FLOPs over
-// ~(2*H + 2*K)*S*D*2 bytes, so at S=340 the bound is the 3.35 TB/s memory
-// rate (about 2 us) and from S of about 700 on it is the 989 TFLOP/s bf16
-// tensor-core rate. This first version runs on the FP32 FMA pipes
-// (67 TFLOP/s peak) out of shared memory and so is bounded by shared-memory
-// bandwidth and FMA issue, far above either bound; wgmma/TMA tiles are the
-// later step.
+// The bf16 route (mma.sync.m16n8k16, bf16 in, f32 accumulate):
+//   * 4 warps, each owning 16 of the CTA's 64 query rows; the 1-D grid hands
+//     out the longest causal q tiles first. (Two m-tiles a warp, 128 rows a
+//     CTA, was faster at S = 2048 but slower on granite-8b's prefills of
+//     100-340 tokens, whose grids then covered a third of the SMs or less.)
+//   * K and V tiles of BK keys (64 at D <= 128, 32 at D = 256) stay bf16 in
+//     shared memory, filled by 16-byte cp.async and double-buffered: tile
+//     t + 1 is in flight while tile t is multiplied. Rows are padded by 16
+//     bytes (stride D + 8), so the 8 row addresses of every ldmatrix fall in
+//     8 distinct bank groups. 87,040 bytes at D = 128, 101,376 at D = 256:
+//     two CTAs per SM (the f32 staging of the FMA route took 213,760 bytes
+//     at D = 256, one CTA per SM).
+//   * S = Q K^T: Q fragments by ldmatrix (held in registers for the whole kv
+//     loop at D <= 128, re-read per k-step at D = 256, where the 128-float
+//     accumulator leaves no room), K fragments by ldmatrix, a k-step's
+//     fragments loaded before its products.
+//   * softmax on the accumulator fragments in registers: a row lives in the
+//     4 lanes of a quad (two shuffles for max and sum); exp2f with log2(e)
+//     folded into the scale; masks only on tiles that cross Sk, the
+//     diagonal or the window's edge.
+//   * O += P V: P is rounded to bf16 in registers and used directly as the
+//     A fragment (the m16n8 accumulator layout is the m16n8k16 A layout), so
+//     P never goes through shared memory; V fragments by ldmatrix.trans;
+//     l sums the unrounded P in f32. Rounding P to bf16 stays well inside
+//     the bf16 tolerance (a plain emulation in
+//     tests/test_torch_flash_attention.py is held to it).
 //
-// At D = 256 (recurrentgemma's local attention: H=10, K=1, window 2048)
-// the staging takes 213,760 bytes of shared memory, under the 232,448-byte
-// opt-in limit, so one CTA runs on each SM, and the accumulator holds
-// RPT x D/16 = 64 floats per thread.
+// What bounds it on the H100 at the serving shapes (B=1, bf16, causal):
+// about 4 S^2 D H / 2 FLOPs over (2 H + 2 K) S D 2 bytes, so granite-8b's
+// prefills (H=32, K=8, D=128, S <= 340) are bound by the 3.35 TB/s memory
+// rate (about 2 us at S=340) and from S of about 700 on by the 989 TFLOP/s
+// bf16 tensor-core rate (35 us at S=2048). mma.sync reaches only part of
+// that rate; wgmma with TMA-fed tiles is the next step.
 //
 // Accepts float32 and bfloat16, D in {16, 32, 64, 128, 256}, any Sq, Sk >= 1,
 // causal or not, optional window (window <= 0 means none). The Python
@@ -46,6 +65,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "sm90_mma.cuh"
 
 namespace {
 
@@ -219,6 +240,249 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- bf16 route
+// Tensor-core kernel: 4 warps, each owning 16 of the CTA's BQ = 64 query
+// rows; K and V tiles of BK keys stay bf16 in shared memory, double-buffered
+// and filled by cp.async; rows padded by 16 bytes (stride D + 8) so that the
+// 8 row addresses of an ldmatrix fall in 8 distinct bank groups for every D.
+constexpr int TC_BQ = 64;
+constexpr int TC_NT = 128;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D> struct TcTile {
+  static constexpr int BK = D <= 128 ? 64 : 32;   // keys per tile
+  static constexpr int STR = D + 8;                // padded row stride (bf16)
+  static constexpr bool Q_IN_REGS = D <= 128;      // else re-read per k-step
+  static constexpr size_t SMEM =
+      sizeof(__nv_bfloat16) * (size_t)(TC_BQ * STR + 4 * BK * STR);
+};
+
+template <int D>
+__global__ void __launch_bounds__(TC_NT, 2)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, int B, int Sq, int Sk, int H,
+                    int K, int causal, int window, float scale_log2) {
+  using namespace sm90;
+  constexpr int BK = TcTile<D>::BK, STR = TcTile<D>::STR;
+  constexpr bool Q_IN_REGS = TcTile<D>::Q_IN_REGS;
+  constexpr int KD = D / 16;        // k-steps of Q K^T
+  constexpr int NKT = BK / 8;       // key n-tiles of S
+  constexpr int NDT = D / 8;        // d n-tiles of O
+  constexpr int CPR = D / 8;        // 16-byte chunks per row
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BQ x STR
+  __nv_bfloat16* sK = sQ + TC_BQ * STR;                             // 2 x BK x STR
+  __nv_bfloat16* sV = sK + 2 * BK * STR;                            // 2 x BK x STR
+
+  // Longest causal q tiles first: block 0 takes the last q tile of every
+  // (head, row) pair before any shorter one starts.
+  const int nq = (Sq + TC_BQ - 1) / TC_BQ;
+  const int hb = H * B;
+  const int qt = nq - 1 - (int)(blockIdx.x / hb);
+  const int h = (int)(blockIdx.x % hb) % H;
+  const int b = (int)(blockIdx.x % hb) / H;
+  const int q0 = qt * TC_BQ;
+  const int kh = h / (H / K);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row0 = warp * 16;
+
+  const long q_stride = (long)H * D;
+  const long kv_stride = (long)K * D;
+  const __nv_bfloat16* qb = q + ((long)b * Sq * H + h) * D;
+  const __nv_bfloat16* kb = k + ((long)b * Sk * K + kh) * D;
+  const __nv_bfloat16* vb = v + ((long)b * Sk * K + kh) * D;
+  __nv_bfloat16* ob = o + ((long)b * Sq * H + h) * D;
+
+  int kv_end = Sk;
+  if (causal) kv_end = min(Sk, q0 + TC_BQ);
+  int kv_start = 0;
+  if (window > 0) kv_start = max(0, q0 - window + 1);
+  kv_start = (kv_start / BK) * BK;
+  const int ntiles = kv_end > kv_start ? (kv_end - kv_start + BK - 1) / BK : 0;
+
+  for (int c = tid; c < TC_BQ * CPR; c += TC_NT) {
+    const int r = c / CPR, col = (c % CPR) * 8, qp = q0 + r;
+    const bool in = qp < Sq;
+    cp_async16(smem_addr(sQ + r * STR + col), in ? qb + qp * q_stride + col : qb, in);
+  }
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = kv_start + t * BK;
+    for (int c = tid; c < BK * CPR; c += TC_NT) {
+      const int r = c / CPR, col = (c % CPR) * 8, kp = k0 + r;
+      const bool in = kp < Sk;
+      const long off = in ? kp * kv_stride + col : 0;
+      cp_async16(smem_addr(sK + (stage * BK + r) * STR + col), kb + off, in);
+      cp_async16(smem_addr(sV + (stage * BK + r) * STR + col), vb + off, in);
+    }
+  };
+  if (ntiles > 0) load_kv(0, 0);
+  cp_async_commit();                     // group 0: Q and the first kv tile
+
+  float acc[NDT][4];
+#pragma unroll
+  for (int j = 0; j < NDT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};   // running max, base 2, rows g and g+8
+  float l_r[2] = {0.f, 0.f};               // this lane's part of the row sums
+  uint32_t qf[Q_IN_REGS ? KD : 1][4];
+
+  // ldmatrix row addresses of this lane: A from row-major Q; B = K^T from
+  // K's rows (non-transposed); B = V from V's rows (transposed).
+  const uint32_t q_addr = smem_addr(sQ + (row0 + (lane & 15)) * STR + (lane >> 4) * 8);
+  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3), v_col = (lane >> 4) * 8;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < ntiles) load_kv(t + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();                  // tile t (and Q) have landed
+    __syncthreads();
+    if constexpr (Q_IN_REGS) {
+      if (t == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) ldsm_x4(qf[kk], q_addr + kk * 32);
+      }
+    }
+    const int k0 = kv_start + t * BK;
+    const uint32_t k_base = smem_addr(sK + (stage * BK + k_row) * STR + k_col);
+    const uint32_t v_base = smem_addr(sV + (stage * BK + v_row) * STR + v_col);
+
+    // S = Q K^T; a k-step's K fragments are loaded before its products
+    float s[NKT][4];
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldsm_x4(a, q_addr + kk * 32);
+      }
+      uint32_t bk[NKT / 2][4];
+#pragma unroll
+      for (int jp = 0; jp < NKT / 2; ++jp) ldsm_x4(bk[jp], k_base + (jp * 16 * STR + kk * 16) * 2);
+#pragma unroll
+      for (int jp = 0; jp < NKT / 2; ++jp) {
+        mma_bf16(s[2 * jp], a, bk[jp][0], bk[jp][1]);
+        mma_bf16(s[2 * jp + 1], a, bk[jp][2], bk[jp][3]);
+      }
+    }
+
+    // Scale into base 2; masks only on tiles that cross Sk, the diagonal or
+    // the window's edge.
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && q0 + TC_BQ - 1 - k0 >= window);
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int qp = q0 + row0 + g + (e >> 1) * 8;
+          const int kp = k0 + j * 8 + 2 * tq + (e & 1);
+          const bool ok = kp < Sk && (!causal || kp <= qp) &&
+                          (window <= 0 || qp - kp < window);
+          x = ok ? x : -INFINITY;
+        }
+        s[j][e] = x;
+      }
+
+    // Online softmax on the fragments: a row lives in the 4 lanes of a quad.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NKT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[r], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;   // a row masked so far
+      const float alpha = exp2f(m_r[r] - m_use);
+      m_r[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NKT; ++j) {
+        s[j][2 * r] = exp2f(s[j][2 * r] - m_use);
+        s[j][2 * r + 1] = exp2f(s[j][2 * r + 1] - m_use);
+        sum += s[j][2 * r] + s[j][2 * r + 1];
+      }
+      l_r[r] = alpha * l_r[r] + sum;
+#pragma unroll
+      for (int j = 0; j < NDT; ++j) {
+        acc[j][2 * r] *= alpha;
+        acc[j][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P rounded to bf16 in registers as the A fragment; V
+    // fragments loaded 4 at a time before their products.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      constexpr int DG = D / 16 < 4 ? D / 16 : 4;
+#pragma unroll
+      for (int d0 = 0; d0 < D / 16; d0 += DG) {
+        uint32_t bv[DG][4];
+#pragma unroll
+        for (int u = 0; u < DG; ++u)
+          ldsm_x4_trans(bv[u], v_base + (kk * 16 * STR + (d0 + u) * 16) * 2);
+#pragma unroll
+        for (int u = 0; u < DG; ++u) {
+          mma_bf16(acc[2 * (d0 + u)], a, bv[u][0], bv[u][1]);
+          mma_bf16(acc[2 * (d0 + u) + 1], a, bv[u][2], bv[u][3]);
+        }
+      }
+    }
+    __syncthreads();                     // stage is refilled at t + 2
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    const int qp = q0 + row0 + g + r * 8;
+    if (qp >= Sq) continue;
+    __nv_bfloat16* orow = ob + qp * q_stride + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NDT; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+          __floats2bfloat162_rn(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B,
+                      int Sq, int Sk, int H, int K, int causal, int window,
+                      float scale, cudaStream_t stream) {
+  constexpr size_t smem = TcTile<D>::SMEM;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const long blocks = (long)((Sq + TC_BQ - 1) / TC_BQ) * H * B;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  flash_fwd_tc_kernel<D><<<(unsigned)blocks, TC_NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), B, Sq,
+      Sk, H, K, causal, window, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- f32 route
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Sq, int Sk, int H, int K, int causal, int window,
@@ -240,14 +504,23 @@ template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        int B, int Sq, int Sk, int H, int K, int D, int causal,
                        int window, float scale, cudaStream_t stream) {
+  // bf16 goes to the tensor-core kernel, f32 to the FMA kernel.
+  constexpr bool tc = sizeof(T) == 2;
+#define REPRO_FLASH_CASE(DD)                                                      \
+  case DD:                                                                       \
+    return tc ? launch_tc<DD>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, \
+                              stream)                                            \
+              : launch<float, DD>(q, k, v, o, B, Sq, Sk, H, K, causal, window,   \
+                                  scale, stream);
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, stream);
+    REPRO_FLASH_CASE(16)
+    REPRO_FLASH_CASE(32)
+    REPRO_FLASH_CASE(64)
+    REPRO_FLASH_CASE(128)
+    REPRO_FLASH_CASE(256)
     default: return cudaErrorInvalidValue;
   }
+#undef REPRO_FLASH_CASE
 }
 
 }  // namespace
@@ -268,4 +541,17 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
       is_bf16 ? dispatch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, K, D, causal, window, scale, s)
               : dispatch_d<float>(q, k, v, o, B, Sq, Sk, H, K, D, causal, window, scale, s);
   return (int)err;
+}
+
+// Dynamic shared memory (bytes) of one CTA of the kernel that takes head_dim
+// D in the given dtype; 0 for an unsupported D.
+extern "C" long long repro_flash_attention_smem_bytes(int D, int is_bf16) {
+  switch (D) {
+    case 16: return is_bf16 ? TcTile<16>::SMEM : smem_bytes<16>();
+    case 32: return is_bf16 ? TcTile<32>::SMEM : smem_bytes<32>();
+    case 64: return is_bf16 ? TcTile<64>::SMEM : smem_bytes<64>();
+    case 128: return is_bf16 ? TcTile<128>::SMEM : smem_bytes<128>();
+    case 256: return is_bf16 ? TcTile<256>::SMEM : smem_bytes<256>();
+    default: return 0;
+  }
 }

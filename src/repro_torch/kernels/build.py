@@ -4,8 +4,9 @@ Kernels have a plain C interface and are bound with ``ctypes``: ``nvcc``
 compiles one ``.cu`` file in seconds, where an extension that includes
 PyTorch's headers takes minutes. The library is built at first use, from
 the repository's sources only, into ``src/repro_torch/_build/`` (listed in
-``.gitignore``). Its file name carries a hash of the source and the flags,
-so an edited source is rebuilt and never confused with a stale library.
+``.gitignore``). Its file name carries a hash of the source, the headers
+beside it (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and
+never confused with a stale library.
 """
 
 from __future__ import annotations
@@ -34,17 +35,19 @@ def _nvcc() -> str:
                        "the port's CUDA kernels are built from source on the card's host")
 
 
-def build_library(source: Path) -> ctypes.CDLL:
-    """Compile ``source`` with ``nvcc`` (once per source hash) and load it.
+def build_library(source: Path, build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
+    """Compile ``source`` with ``nvcc`` (once per source hash) into
+    ``build_dir`` and load it.
 
     The compiler's output (``-Xptxas -v``: registers, shared memory,
     spills) is kept beside the library as ``<name>.log``."""
-    source = Path(source)
-    digest = hashlib.sha256(source.read_bytes()
+    source, build_dir = Path(source), Path(build_dir)
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    lib = build_dir / f"lib{source.stem}-{digest}.so"
     if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                               capture_output=True, text=True)

@@ -20,8 +20,9 @@ from repro_torch.kernels.build import build_library
 __all__ = ["ssd_kernel", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "ssd_scan.cu"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_SMEM = 232448               # the H100's opt-in shared memory per block
+TC_MAX_P, TC_MAX_N = 64, 128     # the bf16 route's register tiles
 
 _lib = None
 
@@ -31,11 +32,15 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build_library(SOURCE)
         fn = lib.repro_ssd_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.repro_ssd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.repro_ssd_smem_bytes.restype = ctypes.c_longlong
+        fn = lib.repro_ssd_fwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -66,6 +71,19 @@ def _check(x, dt, A, Bm, Cm) -> None:
                          f"Bm, Cm (strides {Bm.stride()}, {Cm.stride()}) over N")
 
 
+def _check_tensor_core_route(x, Bm, Cm) -> None:
+    """What the bf16 route's tiles and 16-byte cp.async copies need."""
+    P, N = x.shape[3], Bm.shape[2]
+    if P > TC_MAX_P or N > TC_MAX_N or P % 8 or N % 8:
+        raise ValueError(f"the bf16 SSD kernel takes P <= {TC_MAX_P} and N <= {TC_MAX_N}, "
+                         f"both multiples of 8; got P={P}, N={N}")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+            raise ValueError(f"{name} must start 16-byte aligned with batch and step "
+                             f"strides that are multiples of 8 elements, got strides "
+                             f"{t.stride()}")
+
+
 def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                Cm: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
     """x: (B,S,H,P); dt: (B,S,H) f32; A: (H,) f32; Bm, Cm: (B,S,N), CUDA
@@ -73,7 +91,8 @@ def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Ten
     their step dim (views of one projection are read in place); dt and A
     contiguous. Returns
     y: (B,S,H,P) in x's dtype, the SSD scan from a zero state over chunks of
-    min(chunk, S) steps."""
+    min(chunk, S) steps. bfloat16 runs the chunk-parallel tensor-core
+    kernels, float32 the two-pass FMA kernel."""
     _check(x, dt, A, Bm, Cm)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -81,21 +100,38 @@ def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Ten
     N = Bm.shape[2]
     Q = min(chunk, S)
     lib = _library()
-    smem = lib.repro_ssd_smem_bytes(Q, N)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"chunk {Q} x state {N} needs {smem} bytes of shared memory "
-                         f"per block, above the card's {_MAX_SMEM}")
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
-    # the first pass's C B^T tiles, one Q x Q f32 block per (batch row, chunk)
-    cbt = torch.empty(Bsz * -(-S // Q) * Q * Q, dtype=torch.float32, device=x.device)
     strides = (ctypes.c_longlong * 6)(x.stride(0), x.stride(1), Bm.stride(0),
                                       Bm.stride(1), Cm.stride(0), Cm.stride(1))
+    nc = -(-S // Q)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.repro_ssd_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                                Cm.data_ptr(), y.data_ptr(), cbt.data_ptr(), Bsz, S, H,
-                                P, N, Q,
-                                _DTYPES[x.dtype], strides, stream)
+        if x.dtype == torch.bfloat16:
+            _check_tensor_core_route(x, Bm, Cm)
+            # cum in dt's layout; the per-chunk states, which the state pass
+            # turns into the state at the start of every chunk but the first,
+            # written as its two-term bf16 split
+            cum = torch.empty((Bsz, S, H), dtype=torch.float32, device=x.device)
+            states = torch.empty((Bsz, nc - 1, H, P, N), dtype=torch.float32,
+                                 device=x.device)
+            hsplit = torch.empty((Bsz, nc - 1, H, 2, P, N), dtype=torch.bfloat16,
+                                 device=x.device)
+            err = lib.repro_ssd_fwd_bf16(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                                         Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
+                                         cum.data_ptr(), states.data_ptr(),
+                                         hsplit.data_ptr(), Bsz, S, H, P, N, Q, strides,
+                                         stream)
+        else:
+            smem = lib.repro_ssd_smem_bytes(Q, N)
+            if smem > _MAX_SMEM:
+                raise ValueError(f"chunk {Q} x state {N} needs {smem} bytes of shared "
+                                 f"memory per block, above the card's {_MAX_SMEM}")
+            # the first pass's C B^T tiles, one Q x Q f32 block per (batch row, chunk)
+            cbt = torch.empty(Bsz * nc * Q * Q, dtype=torch.float32, device=x.device)
+            err = lib.repro_ssd_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                                    Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
+                                    cbt.data_ptr(), Bsz, S, H, P, N, Q, strides,
+                                    stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     ssd_kernel.launches += 1

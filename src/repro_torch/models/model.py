@@ -86,13 +86,20 @@ def forward(params, cfg, batch) -> torch.Tensor:
 
 
 def loss_fn(params, cfg, batch) -> torch.Tensor:
-    """Next-token cross entropy, the mean over the B x (S - 1) predictions
-    of tokens[:, 1:], in float32."""
+    """Next-token cross entropy of tokens[:, 1:], in float32: the mean over
+    the B x (S - 1) predictions, or, with ``batch["loss_mask"]`` (B, S), the
+    sum over the predictions whose target is masked in, divided by
+    max(that mask's sum, 1), as the reference does."""
     logits = forward(params, cfg, batch)
     tokens = batch["tokens"]
     preds = logits[:, :tokens.shape[1] - 1]
-    return F.cross_entropy(preds.reshape(-1, preds.shape[-1]),
-                           tokens[:, 1:].reshape(-1).long())
+    nll = F.cross_entropy(preds.reshape(-1, preds.shape[-1]),
+                          tokens[:, 1:].reshape(-1).long(), reduction="none")
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return nll.mean()
+    m = mask[:, 1:].reshape(-1).float()
+    return (nll * m).sum() / m.sum().clamp(min=1.0)
 
 
 # -------------------------------------------------------------------- cache

@@ -93,7 +93,13 @@ def _fill(like, flat: dict, prefix: tuple, device):
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"checkpoint leaf {key!r} has shape {arr.shape}, "
                          f"the state {tuple(like.shape)}")
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device, dtype=like.dtype)
+    if arr.dtype.name == "bfloat16" or arr.dtype == np.dtype("V2"):
+        # bf16 leaves: ml_dtypes' bfloat16, or the JAX package's np.savez
+        # output, which stores them as raw 2-byte voids. Reinterpret the bits.
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.to(device=device, dtype=like.dtype)
 
 
 def restore_latest(ckpt_dir: str, state_like, device="cpu"):

@@ -4,6 +4,8 @@ vs the reference Pallas kernel in interpret mode and vs ``attention_ref``,
 over the grid of tests/test_kernels.py. The CUDA kernel itself is held
 against the plain version on the card by chip_smoke.py (phase 3)."""
 
+import math
+
 import numpy as np
 import pytest
 
@@ -74,3 +76,60 @@ def test_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_kernel(q, k, v)
 
+
+def _flash_tc_emulation(q, k, v, *, causal, window, bk, round_p=True):
+    """A plain-torch emulation of the bf16 route of csrc/flash_attention.cu:
+    S = Q K^T exact in f32 (products of bf16), online softmax over kv tiles
+    of ``bk`` keys in base 2 (log2 e folded into the scale), P rounded to
+    bf16 for P V while l sums the unrounded P in f32, O in f32 until the
+    single bf16 rounding of the output. ``round_p=False`` keeps P in f32."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2)                                   # (B,H,Sq,D)
+    kf = k.float().repeat_interleave(H // K, dim=2).transpose(1, 2)  # (B,H,Sk,D)
+    vf = v.float().repeat_interleave(H // K, dim=2).transpose(1, 2)
+    qpos = torch.arange(Sq)[:, None]
+    m = torch.full((B, H, Sq), float("-inf"))
+    l = torch.zeros((B, H, Sq))
+    o = torch.zeros((B, H, Sq, D))
+    for k0 in range(0, Sk, bk):
+        s = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2) * (D ** -0.5 * math.log2(math.e))
+        kpos = torch.arange(k0, min(Sk, k0 + bk))[None, :]
+        ok = torch.ones_like(kpos - qpos, dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= qpos - kpos < window
+        s = torch.where(ok, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_use = torch.where(m_new == float("-inf"), 0.0, m_new)
+        p = torch.exp2(s - m_use[..., None])
+        alpha = torch.exp2(m - m_use)
+        l = alpha * l + p.sum(-1)
+        o = alpha[..., None] * o + (p.bfloat16().float() if round_p else p) @ vf[:, :, k0:k0 + bk]
+        m = m_new
+    out = torch.where(l[..., None] > 0, o / l.clamp(min=1e-30)[..., None], 0.0)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("B,S,H,K,D,window,bk", [(1, 640, 8, 2, 128, None, 64),
+                                                 (1, 600, 4, 1, 256, 256, 32)])
+def test_tensor_core_rounding_stays_inside_the_card_tolerance(B, S, H, K, D, window, bk,
+                                                              seed):
+    """The bf16 route's roundings against attention_ref on bf16 inputs,
+    under chip_smoke.py's bf16 tolerance (atol = rtol = 2e-2)."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _inputs(B, S, S, H, K, D, seed))
+    ref = attention_ref(q, k, v, causal=True, window=window)
+    out = _flash_tc_emulation(q, k, v, causal=True, window=window, bk=bk)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+
+
+def test_tensor_core_emulation_without_rounding_matches_ref_in_f32():
+    """The tiling, the masks and the base-2 online softmax alone, in f32
+    with P unrounded: attention_ref to summation order."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 200, 200, 4, 2, 64, seed=3))
+    ref = attention_ref(q, k, v, causal=True, window=96)
+    out = _flash_tc_emulation(q, k, v, causal=True, window=96, bk=64, round_p=False)
+    torch.testing.assert_close(out, ref, **TOL)

@@ -23,6 +23,7 @@ from repro.models import model as JM  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import interop  # noqa: E402
+from repro_torch.kernels.ssd import kernel as ssd_kernel_module  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ssd, ssd_kernel, ssd_ref, ssd_vjp  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
@@ -72,6 +73,18 @@ def test_plain_ssd_matches_pallas_and_ref(B, S, H, P, N, chunk, dtype):
     out = out.float().numpy()
     np.testing.assert_allclose(out, np.asarray(pallas, np.float32), **TOL[dtype])
     np.testing.assert_allclose(out, np.asarray(ref, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("what", ["P", "N", "stride"])
+def test_bf16_route_refuses_what_its_tiles_cannot_take(what):
+    """The bf16 route's own limits (P <= 64, N <= 128, multiples of 8, views
+    16-byte aligned) are checked before any launch."""
+    P, N = {"P": (12, 16), "N": (16, 136), "stride": (16, 16)}[what]
+    x, _, _, Bm, Cm = _torch(*_inputs(1, 8, 2, P, N, seed=0), "bfloat16")
+    if what == "stride":        # a step stride of 20 elements: rows not 16-byte aligned
+        Bm = torch.zeros((1, 8, 20), dtype=torch.bfloat16)[..., :16]
+    with pytest.raises(ValueError, match="bf16 SSD kernel takes|16-byte aligned"):
+        ssd_kernel_module._check_tensor_core_route(x, Bm, Cm)
 
 
 def test_kernel_refuses_cpu_tensors():
@@ -134,3 +147,95 @@ def test_ssm_apply_matches_jax():
     ref = jax.jit(JS.ssm_apply, static_argnums=2)(layer, jnp.asarray(x), jcfg)
     out = TS.ssm_apply(interop.to_torch(layer), torch.from_numpy(x), tcfg)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL["float32"])
+
+
+# ---------------------------------------------------------------- rehearsal
+# A plain-torch emulation of the tensor-core (bf16) route of csrc/ssd_scan.cu,
+# stage by stage, with the kernel's roundings: cum in f64 in order, rounded
+# once; products of two bf16 operands are exact in f32; each product with an
+# f32 operand is split in two bf16 terms (hi = bf16(t), lo = bf16(t - hi)),
+# both multiplied by the exact bf16 side into one f32 sum.
+
+def _round(t: torch.Tensor, rounding: str):
+    """The terms an f32 operand becomes: "split" (the kernel's two bf16
+    terms), "single" (one bf16) or "none" (f32 kept)."""
+    if rounding == "none":
+        return (t,)
+    hi = t.bfloat16().float()
+    return (hi, (t - hi).bfloat16().float()) if rounding == "split" else (hi,)
+
+
+def _ssd_tc_emulation(x, dt, A, Bm, Cm, *, chunk, rounding="split"):
+    """y of the SSD scan through the kernel's stages. ``rounding="none"``
+    keeps every operand in f32: the stage decomposition alone."""
+    Bsz, S, H, P = x.shape
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    xf, Bf, Cf = x.float(), Bm.float(), Cm.float()
+    cum = torch.empty((Bsz, S, H))                   # the cum kernel
+    for c in range(nc):
+        s = slice(c * Q, min(S, (c + 1) * Q))
+        cum[:, s] = torch.cumsum((dt[:, s] * A).double(), dim=1).float()
+    states = []                                      # stage a: S_c, chunks < nc - 1
+    for c in range(nc - 1):
+        s = slice(c * Q, (c + 1) * Q)
+        w = torch.exp(cum[:, s][:, -1:] - cum[:, s])                # (B,Q,H)
+        v = w[..., None] * (dt[:, s][..., None] * xf[:, s])         # (B,Q,H,P)
+        states.append(sum(torch.einsum("bjhp,bjn->bhpn", t, Bf[:, s])
+                          for t in _round(v, rounding)))
+    h = torch.zeros((Bsz, H, P, Bm.shape[-1]))       # stage b
+    h_start = [h]
+    for c in range(nc - 1):
+        h = torch.exp(cum[:, (c + 1) * Q - 1])[..., None, None] * h + states[c]
+        h_start.append(h)
+    y = torch.empty((Bsz, S, H, P))                  # stage c
+    for c in range(nc):
+        s = slice(c * Q, min(S, (c + 1) * Q))
+        q = s.stop - s.start
+        cb = Cf[:, s] @ Bf[:, s].transpose(1, 2)                    # (B,i,j) exact
+        cum_c = cum[:, s].transpose(1, 2)                           # (B,H,Q)
+        diff = cum_c[..., :, None] - cum_c[..., None, :]
+        tri = torch.ones(q, q, dtype=torch.bool).tril()
+        L = torch.exp(torch.where(tri, diff, torch.tensor(float("-inf"))))
+        G = cb[:, None] * L * dt[:, s].transpose(1, 2)[:, :, None, :]   # (B,H,i,j)
+        xs = xf[:, s].permute(0, 2, 1, 3)                           # (B,H,j,P)
+        intra = sum(g @ xs for g in _round(G, rounding))
+        inter = sum(Cf[:, s][:, None] @ t.transpose(-1, -2)
+                    for t in _round(h_start[c], rounding)) * torch.exp(cum_c)[..., None]
+        y[:, s] = (inter + intra).permute(0, 2, 1, 3)
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tensor_core_rounding_stays_inside_the_card_tolerance(seed):
+    """The bf16 route's roundings (split f32 operands, exact bf16 C B^T, f64
+    cum) against ssd_ref on bf16 inputs with chip_smoke.py's statistics and
+    its bf16 tolerance, at chunk 256 over 4 chunks."""
+    x, dt, A, Bm, Cm = _torch(*_inputs(2, 1024, 4, 64, 128, seed=seed), "bfloat16")
+    ref = ssd_ref(x, dt, A, Bm, Cm, chunk=256)
+    out = _ssd_tc_emulation(x, dt, A, Bm, Cm, chunk=256)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 1024, 4, 64, 128, 256),
+                                             (2, 77, 3, 16, 16, 32),
+                                             (1, 31, 2, 24, 40, 32)])
+def test_tensor_core_stages_match_ref_in_f32(B, S, H, P, N, chunk):
+    """The stage decomposition (cum, per-chunk states, state pass, chunk
+    scan) with no rounding equals ssd_ref in f32 to summation order."""
+    args = _torch(*_inputs(B, S, H, P, N, seed=S), "float32")
+    out = _ssd_tc_emulation(*args, chunk=chunk, rounding="none")
+    torch.testing.assert_close(out, ssd_ref(*args, chunk=chunk), **TOL["float32"])
+
+
+def test_single_bf16_rounding_would_break_the_tolerance():
+    """Why the split: rounding each f32 operand to one bf16 instead leaves
+    the card's bf16 tolerance."""
+    x, dt, A, Bm, Cm = _torch(*_inputs(2, 1024, 4, 64, 128, seed=0), "bfloat16")
+    ref = ssd_ref(x, dt, A, Bm, Cm, chunk=256).float()
+    split = _ssd_tc_emulation(x, dt, A, Bm, Cm, chunk=256).float()
+    single = _ssd_tc_emulation(x, dt, A, Bm, Cm, chunk=256, rounding="single").float()
+    limit = TOL["bfloat16"]["atol"] + TOL["bfloat16"]["rtol"] * ref.abs()
+    assert ((split - ref).abs() / limit).max() < 1
+    assert ((single - ref).abs() / limit).max() > 1

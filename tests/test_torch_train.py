@@ -107,6 +107,56 @@ def test_every_grad_leaf_matches_jax_grad(smoke):
                                    err_msg="/".join(path))
 
 
+@pytest.mark.parametrize("mask_kind", ["random", "all_zero"])
+def test_loss_mask_matches_jax(smoke, mask_kind):
+    """With ``loss_mask`` the loss is the masked mean of the reference,
+    mask[:, 1:] over max(its sum, 1); an all-zero mask gives 0."""
+    jcfg, tcfg, jparams, tokens = smoke
+    rng = np.random.default_rng(5)
+    mask = (rng.random(tokens.shape) < 0.6) if mask_kind == "random" else \
+        np.zeros(tokens.shape, bool)
+    mask = mask.astype(np.int32)
+    jloss = jax.jit(JM.loss_fn, static_argnums=1)(
+        jparams, jcfg, {"tokens": jnp.asarray(tokens), "loss_mask": jnp.asarray(mask)})
+    tparams = interop.to_torch(jparams)
+    loss = TM.loss_fn(tparams, tcfg, {"tokens": torch.from_numpy(tokens),
+                                      "loss_mask": torch.from_numpy(mask)})
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5, atol=1e-5)
+    if mask_kind == "all_zero":
+        assert loss.item() == 0.0
+
+
+def test_loss_with_all_ones_mask_equals_unmasked_loss(smoke):
+    _, tcfg, jparams, tokens = smoke
+    tparams = interop.to_torch(jparams)
+    batch = {"tokens": torch.from_numpy(tokens)}
+    plain = TM.loss_fn(tparams, tcfg, batch)
+    ones = TM.loss_fn(tparams, tcfg, {**batch, "loss_mask": torch.ones(tokens.shape)})
+    np.testing.assert_allclose(ones.item(), plain.item(), rtol=1e-6, atol=1e-6)
+
+
+def test_jax_checkpoint_with_bf16_leaves_restores_the_same_bits(tmp_path):
+    """The reference saves bf16 leaves through np.savez as 2-byte voids; the
+    port restores them bit for bit (JAX -> port only: the reference cannot
+    restore its own bf16 checkpoint)."""
+    rng = np.random.default_rng(7)
+    state = {"opt": {"mu": {"w": jnp.asarray(rng.standard_normal((5, 3)), jnp.bfloat16)}},
+             "params": {"w": jnp.asarray(rng.standard_normal((5, 3)), jnp.float32)},
+             "step": jnp.asarray(4, jnp.int32)}
+    jckpt.save(str(tmp_path), state, 4)
+    like = {"opt": {"mu": {"w": torch.empty((5, 3), dtype=torch.bfloat16)}},
+            "params": {"w": torch.empty((5, 3))},
+            "step": torch.empty((), dtype=torch.int32)}
+    restored, step = tckpt.restore_latest(str(tmp_path), like)
+    assert step == 4
+    mu = restored["opt"]["mu"]["w"]
+    assert mu.dtype == torch.bfloat16
+    want = interop.to_torch(state)
+    assert torch.equal(mu.view(torch.int16), want["opt"]["mu"]["w"].view(torch.int16))
+    assert torch.equal(restored["params"]["w"], want["params"]["w"])
+    assert restored["step"].item() == 4
+
+
 def _leaves(tree, prefix=()):
     if isinstance(tree, dict):
         for k in sorted(tree):
