@@ -7,20 +7,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   1. device   — a CUDA card must be visible; prints its name and power limit;
   2. build    — builds the hand-written kernels from src/repro_torch/csrc,
                 one nvcc per source, all started together (with --old-src,
-                another design's flash_attention.cu and ssd_scan.cu beside
-                them); reads registers, spills and shared memory from the
+                another design's flash_attention.cu, ssd_scan.cu and
+                lru_scan.cu, those of them that DIR holds, beside them);
+                reads registers, spills and shared memory from the
                 -Xptxas -v logs and counts HMMA (mma.sync) and LDGSTS
                 (cp.async) instructions in the SASS (cuobjdump);
   3. kernels  — holds each kernel against its plain PyTorch version on the
                 card, on seeded inputs, in bf16 (the tensor-core routes of
                 flash attention and the SSD scan) and in f32 (their FMA
-                routes), at head_dim 16-256 and the RG-LRU and SSD shapes;
-                one line per kernel: the cases and the worst error over its
-                limit (a failing case prints its own line and ends the run).
-                Times each kernel beside the plain version, the matching
-                PyTorch library call where there is one and its roofline
-                bound, and with --old-src the other design, in turns (old,
-                new, new, old); holds the SSD kernel's gradient rule
+                routes), at head_dim 16-256 and the RG-LRU and SSD shapes
+                (the scan also on long-memory inputs that carry h across
+                its chunks, and in f32 against an f64 scan beside the plain
+                version); one line per kernel: the cases and the worst
+                error over its limit (a failing case prints its own line
+                and ends the run). Times each kernel beside the plain
+                version, the matching PyTorch library call where there is
+                one and its roofline bound, and with --old-src the other
+                design, in turns (old, new, new, old); the RG-LRU scan by
+                its kernels' device time (torch.profiler), back to back and
+                with the L2 cache flushed (by a read) before each call, and
+                by CUDA events as the others (the host's enqueue included);
+                holds the SSD kernel's gradient rule
                 (autograd through the Function) against autograd through the
                 plain version, and times it;
   4. model    — granite-smoke and recurrentgemma-smoke in float32 on the card
@@ -104,11 +111,20 @@ PEAK_BYTES = 3.35e12
 # both sides (in f64, rounded once), so there too only matmul sums differ.
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
-# The scan and its plain version do the same f32 steps in the same order
-# (a product, then a sum, each rounded), so they agree to the bit; the
-# tolerance allows one ulp of the output should the compiler contract them.
-LRU_TOL = {torch.float32: dict(atol=1e-6, rtol=1e-6),
-           torch.bfloat16: dict(atol=0, rtol=8e-3)}
+# The chunked scan re-walks each chunk with the plain version's f32 steps (a
+# product, then a sum, each rounded) from a carry-in composed over the
+# chunks before it (A carry + H), which rounds otherwise than the plain
+# version's walk; from there the two walks round independently, so they
+# part by about sqrt(S) roundings of |h|: of order 1e-5 over 2500 steps at
+# |h| <= 5 (long_memory_inputs' statistics), and that difference can fall
+# where h is near 0. f32: 2e-5, the tolerance of the plain version against
+# the JAX reference's associative scan, another rounding order
+# (tests/test_torch_rglru.py, where an emulation of this kernel's
+# arithmetic is held to this limit too). bf16: the same f32 difference can
+# flip the output's rounding by one ulp, at most 2^-7 |h| (rtol); where h
+# is near 0 the f32 difference itself shows (atol, that of f32).
+LRU_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+           torch.bfloat16: dict(atol=2e-5, rtol=8e-3)}
 MODEL_TOL = dict(atol=1e-3, rtol=1e-3)      # whole model, float32, card vs CPU
 T_START = time.perf_counter()
 
@@ -295,13 +311,17 @@ def _built(source: Path, build_dir: Path) -> Path:
 
 def phase_build(old_src: Path | None) -> dict:
     """Builds the three sources, one nvcc each, all started together (and
-    the old design's flash and SSD sources from ``old_src`` beside them,
-    into their own directory); then reads registers, spills and shared
-    memory from the -Xptxas -v logs and counts HMMA and LDGSTS in the SASS."""
+    the old design's sources that ``old_src`` holds beside them, into their
+    own directory); then reads registers, spills and shared memory from the
+    -Xptxas -v logs and counts HMMA and LDGSTS in the SASS."""
     t0 = time.perf_counter()
     jobs = {name: (lambda m=m: m._library()) for name, m in KERNEL_MODULES.items()}
     if old_src is not None:
-        for name in ("flash_attention", "ssd_scan"):
+        old = [name for name in KERNEL_MODULES if (old_src / f"{name}.cu").exists()]
+        if not old:
+            fail(f"--old-src {old_src} holds none of "
+                 f"{', '.join(f'{n}.cu' for n in KERNEL_MODULES)}")
+        for name in old:
             src = old_src / f"{name}.cu"
             jobs[f"old {name}"] = lambda src=src: build.build_library(src, OLD_BUILD_DIR)
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -363,12 +383,12 @@ def _old_ssd(lib):
     return run
 
 
-def time_in_turns(new, old) -> tuple[float, float | None]:
-    """(new ms, old ms): each timed twice, old, new, new, old, and averaged;
-    without the old design, the new one alone."""
+def time_in_turns(new, old, timer=time_ms) -> tuple[float, float | None]:
+    """(new ms, old ms): each timed by ``timer`` twice, old, new, new, old,
+    and averaged; without the old design, the new one alone."""
     if old is None:
-        return time_ms(new), None
-    a, b, c, d = time_ms(old), time_ms(new), time_ms(new), time_ms(old)
+        return timer(new), None
+    a, b, c, d = timer(old), timer(new), timer(new), timer(old)
     return (b + c) / 2, (a + d) / 2
 
 
@@ -475,37 +495,160 @@ def check_flash(gen, dev, old) -> dict:
     return timings
 
 
-def check_lru(gen, dev) -> dict:
+LRU_KERNELS = r"lru_scan\w*_kernel"    # every kernel of the scan, either design
+
+
+def long_memory_inputs(kind: str, B, S, W, dt, gen, dev):
+    """Coefficients whose h carries across many chunks: "long" draws a in
+    [0.999, 1), "one" takes a = 1 (h is the prefix sum of b), "reset" mixes
+    a = 0 (2 % of steps, so most chunks of 32 hold a reset) into the long
+    draw. b = sqrt(1 - a^2) x with x ~ N(0, 1), as the model's gates make it
+    (x / sqrt(S) for a = 1), which keeps h near unit size; with b ~ N(0, 1)
+    and a near 1, |h| would walk to sqrt(S) and beyond, and the rounding of
+    any f32 order of the scan (the plain walk's too) grows with it, past
+    LRU_TOL."""
+    x = torch.randn((B, S, W), generator=gen, device=dev)
+    if kind == "one":
+        return torch.ones_like(x).to(dt), (x / math.sqrt(S)).to(dt)
+    a = 0.999 + 0.001 * torch.rand((B, S, W), generator=gen, device=dev)
+    if kind == "reset":
+        a = torch.where(torch.rand((B, S, W), generator=gen, device=dev) < 0.02, 0.0, a)
+    return a.to(dt), (torch.sqrt(1 - a * a) * x).to(dt)
+
+
+def scan_f64(a, b):
+    """h_t = a_t h_{t-1} + b_t walked in f64, the yardstick of f32 rounding."""
+    h = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float64, device=a.device)
+    out = torch.empty(a.shape, dtype=torch.float64, device=a.device)
+    for t in range(a.shape[1]):
+        h = a[:, t].double() * h + b[:, t].double()
+        out[:, t] = h
+    return out
+
+
+def scan_device_ms(fn, flush=None, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: the summed durations of the RG-LRU
+    kernels it launches (``LRU_KERNELS``), from torch.profiler's kernel events
+    over ``iters`` calls after 3 warm-up calls; the host's enqueue and the
+    gaps between launches are not counted. With ``flush``, a buffer five
+    times the 50 MB L2 cache is read before each call, so the call finds its
+    inputs in device memory only. A read, not a write: a written buffer would
+    leave L2 full of dirty lines, which the timed call would then write back."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and re.search(LRU_KERNELS, e.key))
+    if us <= 0:
+        fail("the profiler shows no RG-LRU kernel time")
+    return us / iters / 1e3
+
+
+def _old_lru(lib):
+    """The old design's scan (one thread per (row, channel), all S steps)
+    through its C interface repro_lru_scan(a, b, y, B, S, W, is_bf16, stream)."""
+    fn = lib.repro_lru_scan
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(a, b):
+        B, S, W = a.shape
+        y = torch.empty_like(a)
+        err = fn(a.data_ptr(), b.data_ptr(), y.data_ptr(), B, S, W,
+                 int(a.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"the old design's RG-LRU scan failed: CUDA error {err}")
+        return y
+    return run
+
+
+def check_lru(gen, dev, old) -> dict:
     def inputs(B, S, W, dt):
         a = torch.rand((B, S, W), generator=gen, device=dev).to(dt)   # decays in [0, 1)
         b = torch.randn((B, S, W), generator=gen, device=dev).to(dt)
         return a, b
 
     check = Cases("lru_scan")
+    f64 = []                                 # f32 cases: (label, kernel err, plain err)
+
+    def case(label, a, b, key=None):
+        dt = a.dtype
+        out = lru_scan_kernel(a, b)
+        torch.cuda.synchronize()
+        if out.dtype != dt:
+            fail(f"lru_scan returned {out.dtype} for {dt}")
+        B, S, W = a.shape
+        label = f"{label} L={lru_scan_kernel.last_launch[0]} {str(dt)[6:]}"
+        plain = lru_scan_ref(a, b)
+        check.check(label, out, plain, LRU_TOL[dt], key=key)
+        if dt == torch.float32:
+            exact = scan_f64(a, b)
+            f64.append((label, (out.double() - exact).abs().max().item(),
+                        (plain.double() - exact).abs().max().item()))
+
     shapes = [(1, 1, 2560), (1, 3, 2560), (1, 340, 2560), (4, 1000, 2560),
               (1, 2500, 2560), (2, 77, 64), (1, 300, 130), (3, 17, 130)]
     for (B, S, W) in shapes:
         for dt in (torch.float32, torch.bfloat16):
             a, b = inputs(B, S, W, dt)
-            out = lru_scan_kernel(a, b)
-            torch.cuda.synchronize()
-            if out.dtype != dt:
-                fail(f"lru_scan returned {out.dtype} for {dt}")
-            check.check(f"B={B} S={S} W={W} {str(dt)[6:]}", out, lru_scan_ref(a, b),
-                        LRU_TOL[dt], key=(B, S, W, dt))
+            case(f"B={B} S={S} W={W}", a, b, key=(B, S, W, dt))
+    # own generator: the draws of `gen` that the SSD checks see stay as they were
+    gen_long = torch.Generator(device=dev).manual_seed(1)
+    for (B, S, W) in ((1, 2500, 2560), (4, 1000, 2560), (3, 77, 130)):
+        for kind in ("long", "one", "reset"):
+            for dt in (torch.float32, torch.bfloat16):
+                a, b = long_memory_inputs(kind, B, S, W, dt, gen_long, dev)
+                case(f"{kind} B={B} S={S} W={W}", a, b)
+    for dt in (torch.float32, torch.bfloat16):     # not 16-byte aligned: the scalar route
+        n = 2 * 77 * 64 + 1
+        a = torch.rand(n, generator=gen_long, device=dev).to(dt)[1:].view(2, 77, 64)
+        b = torch.randn(n, generator=gen_long, device=dev).to(dt)[1:].view(2, 77, 64)
+        case("B=2 S=77 W=64 offset by one element", a, b)
     check.report()
+    worst = max(f64, key=lambda r: r[1])
+    ratio = max(f64, key=lambda r: r[1] / max(r[2], 1e-30))
+    log(f"[kernels] lru_scan f32 against an f64 scan: {len(f64)} cases, worst kernel err "
+        f"{worst[1]:.3e} (plain {worst[2]:.3e}) at {worst[0]}; worst kernel/plain "
+        f"{ratio[1]:.3e}/{ratio[2]:.3e} at {ratio[0]} (limit 2x)")
+    if any(k > 2 * p for _, k, p in f64):
+        fail(f"lru_scan's f32 error against an f64 scan exceeds twice the plain version's "
+             f"at {ratio[0]}")
 
-    timings = {}
+    old_run = _old_lru(old) if old is not None else None
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device=dev)     # 256 MB
+    timings, launched = {}, {}
     for S in (340, 2500):
         B, W = 1, 2560
         a, b = inputs(B, S, W, torch.bfloat16)
-        ms = time_ms(lambda: lru_scan_kernel(a, b))
+        old_fn = None
+        if old_run is not None:
+            if not torch.allclose(old_run(a, b).float(), lru_scan_ref(a, b).float(),
+                                  **LRU_TOL[torch.bfloat16]):
+                fail(f"the old design's RG-LRU scan disagrees at S={S}")
+            old_fn = lambda: old_run(a, b)  # noqa: E731
+        new_fn = lambda: lru_scan_kernel(a, b)  # noqa: E731
+        warm, old_warm = time_in_turns(new_fn, old_fn, timer=scan_device_ms)
+        cold, old_cold = time_in_turns(new_fn, old_fn,
+                                       timer=lambda fn: scan_device_ms(fn, flush, 10))
+        # CUDA events around 20 calls: the host's enqueue and the gaps between
+        # the three launches included, as the flash and SSD times are taken
+        events, old_events = time_in_turns(new_fn, old_fn)
+        launched[S] = lru_scan_kernel.last_launch
         plain_ms = time_ms(lambda: lru_scan_ref(a, b), iters=3, warmup=1)
         bound_ms, bound_by = lru_bound(B, S, W, 2)
-        timings[S] = dict(shape=f"bf16 B=1 S={S} W={W}", ms=ms, old_ms=None,
-                          plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                          bound_by=bound_by, max_abs_err=check.errs[(B, S, W, torch.bfloat16)])
-    return timings
+        timings[S] = dict(shape=f"bf16 B=1 S={S} W={W}", ms=cold, old_ms=old_cold,
+                          warm_ms=warm, old_warm_ms=old_warm, events_ms=events,
+                          old_events_ms=old_events, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=check.errs[(B, S, W, torch.bfloat16)])
+    del flush
+    return timings, launched
 
 
 def ssd_counts(B, S, H, P, N, chunk, itemsize) -> tuple[float, float]:
@@ -606,8 +749,9 @@ def check_ssd_grad(gen, dev) -> dict:
 
 def phase_kernels(dev, old: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
-    return {"flash": check_flash(gen, dev, old.get("flash_attention")),
-            "lru": check_lru(gen, dev),
+    flash = check_flash(gen, dev, old.get("flash_attention"))
+    lru, lru_launch = check_lru(gen, dev, old.get("lru_scan"))
+    return {"flash": flash, "lru": lru, "lru_launch": lru_launch,
             "ssd": check_ssd(gen, dev, old.get("ssd_scan")),
             "ssd_grad": check_ssd_grad(gen, dev)}
 
@@ -841,7 +985,7 @@ def phase_profile(serve: dict) -> None:
                 f"{dev_us / 1e3:.3f} ms; device idle share of an untraced call "
                 f"{1 - dev_us / untraced_us[e.key]:.1%}")
     port_us = {name: sum(e.self_device_time_total for e in kernels if re.search(pat, e.key))
-               for name, pat in (("flash", r"flash_fwd\w*_kernel"), ("lru", r"lru_scan\w*_kernel"))}
+               for name, pat in (("flash", r"flash_fwd\w*_kernel"), ("lru", LRU_KERNELS))}
     log(f"[profile] {arch} port kernels: flash attention {port_us['flash'] / 1e3:.3f} ms "
         f"({port_us['flash'] / max(busy_us, 1):.1%}), RG-LRU scan "
         f"{port_us['lru'] / 1e3:.3f} ms ({port_us['lru'] / max(busy_us, 1):.1%})")
@@ -849,7 +993,7 @@ def phase_profile(serve: dict) -> None:
         log(f"[profile] {arch} kernel {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.self_device_time_total / max(busy_us, 1):6.1%} x{e.count:<5} {e.key[:70]}")
     serve["profile"] = {"busy_ms": busy_us / 1e3, "idle": 1 - busy_us / untraced_wall_us,
-                        "flash_ms": port_us["flash"] / 1e3}
+                        "flash_ms": port_us["flash"] / 1e3, "lru_ms": port_us["lru"] / 1e3}
 
 
 def serve_and_profile(dev, arch: str, **kw) -> dict:
@@ -1032,13 +1176,22 @@ def summary(built: dict, recs: dict, granite: dict, rg: dict, train: dict) -> No
         log(f"[summary] {name} {t['shape']}: {t['ms']:.4f} ({_ms(t['old_ms'])}) | "
             f"{t['plain_ms']:.4f} | {_ms(t['library_ms'])} | {t['bound_ms']:.4f} "
             f"{t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of bound")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for S, t in recs["lru"].items():
+        L, V, chunk, carry, apply = recs["lru_launch"][S]
+        log(f"[summary] lru_scan {t['shape']}: launched (the library's report) L={L}, "
+            f"V={V}, CTAs chunk {chunk}, carry {carry}, apply {apply} on {sms} SMs; "
+            f"device ms, L2 flushed {t['ms']:.4f} (old design {_ms(t['old_ms'])}), back "
+            f"to back {t['warm_ms']:.4f} (old design {_ms(t['old_warm_ms'])}); CUDA "
+            f"events with the host's enqueue {t['events_ms']:.4f} (old design "
+            f"{_ms(t['old_events_ms'])})")
     log(f"[summary] ssd gradient rule {recs['ssd_grad']['ms']:.4f} ms per call")
     for arch, r in (("granite-8b", granite), ("recurrentgemma-2b", rg)):
         log(f"[summary] {arch} serving: {r['tokens_s']:.2f} tokens/s, prefill "
             f"{r['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} ms per step, peak "
             f"{r['peak_gib']:.3f} GiB, device idle {r['idle']:.1%}, flash "
-            f"{r['flash_ms']:.3f} of {r['busy_ms']:.3f} kernel ms; launches "
-            f"{r['launches']}")
+            f"{r['flash_ms']:.3f} and RG-LRU scan {r['lru_ms']:.3f} of {r['busy_ms']:.3f} "
+            f"kernel ms; launches {r['launches']}")
     log(f"[summary] mamba2-130m training: {train['step_ms']:.3f} ms/step mean, "
         f"{train['median_ms']:.3f} median, "
         f"{train['tokens_s']:.1f} tokens/s, peak {train['peak_gib']:.3f} GiB, losses {train['losses'][0]:.6f} .. {train['losses'][-1]:.6f}; profiled "
@@ -1050,9 +1203,11 @@ def summary(built: dict, recs: dict, granite: dict, rg: dict, train: dict) -> No
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old-src", type=Path, default=None,
-                    help="a directory with another design's flash_attention.cu and "
-                         "ssd_scan.cu (the C interfaces of the FMA-only kernels: "
-                         "flash as now, the SSD's repro_ssd_fwd with is_bf16), "
+                    help="a directory with another design's flash_attention.cu, "
+                         "ssd_scan.cu or lru_scan.cu, any of them (the C interfaces "
+                         "assumed: flash as now, the SSD's FMA-only repro_ssd_fwd "
+                         "with is_bf16, the scan's one-thread-per-channel "
+                         "repro_lru_scan(a, b, y, B, S, W, is_bf16, stream)), "
                          "timed in turns beside this one's")
     args = ap.parse_args()
     kind = phase_device()

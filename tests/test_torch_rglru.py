@@ -1,10 +1,13 @@
 """Port's RG-LRU path against the JAX package, on the same numpy inputs and
 carried weights: the plain scan (the CPU path of
 ``repro_torch.kernels.rglru.lru_scan``) vs the reference Pallas kernel in
-interpret mode and vs ``lru_scan_ref``; the decode step; the recurrent
-mixer's prefill and decode; and recurrentgemma-smoke's prefill and decode
-steps with every cache leaf. The CUDA kernel itself is held against the
-plain version on the card by chip_smoke.py (phase 3)."""
+interpret mode and vs ``lru_scan_ref``; an emulation of the CUDA kernel's
+chunked arithmetic vs both; the decode step; the recurrent mixer's prefill
+and decode; and recurrentgemma-smoke's prefill and decode steps with every
+cache leaf. The CUDA kernel itself is held against the plain version on the
+card by chip_smoke.py (phase 3)."""
+
+import math
 
 import numpy as np
 import pytest
@@ -26,7 +29,7 @@ from repro.models import transformer as JT  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.kernels.rglru import (  # noqa: E402
-    lru_decode_step_ref, lru_scan, lru_scan_kernel)
+    lru_decode_step_ref, lru_scan, lru_scan_kernel, lru_scan_ref)
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import rglru as TR  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -38,6 +41,10 @@ from repro_torch.models.layers import flatten_specs  # noqa: E402
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)   # float32 on both sides; op order differs
+# chip_smoke.py's LRU_TOL (the CUDA kernel against the plain scan on the
+# card); test_chunked_emulation_* holds the kernel's arithmetic to it here.
+LRU_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+           "bfloat16": dict(rtol=8e-3, atol=2e-5)}
 
 
 def _coeffs(B, S, W, seed):
@@ -47,16 +54,37 @@ def _coeffs(B, S, W, seed):
     return a.astype(np.float32), b
 
 
-@pytest.mark.parametrize("B,S,W", [
-    (1, 1, 64),       # one step
-    (3, 5, 16),
-    (2, 77, 64),      # ragged against the reference's 128-step chunk
-    (1, 200, 130),    # W not a multiple of 128, two chunks, ragged S
-    (1, 256, 128),
+def _long_memory(kind, B, S, W, seed):
+    """chip_smoke.py's long_memory_inputs from a numpy seed: a in [0.999, 1)
+    ("long"), a = 1 ("one": h is the prefix sum of b), or the long draw with
+    a = 0 at 2 % of steps ("reset"); b = sqrt(1 - a^2) x, x ~ N(0, 1), as the
+    model's gates make it (x / sqrt(S) for a = 1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, W))
+    if kind == "one":
+        return np.ones((B, S, W), np.float32), (x / math.sqrt(S)).astype(np.float32)
+    a = 0.999 + 0.001 * rng.random((B, S, W))
+    if kind == "reset":
+        a = np.where(rng.random((B, S, W)) < 0.02, 0.0, a)
+    return a.astype(np.float32), (np.sqrt(1 - a * a) * x).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,S,W,memory", [
+    pytest.param(1, 1, 64, "short", id="1-1-64"),         # one step
+    pytest.param(3, 5, 16, "short", id="3-5-16"),
+    pytest.param(2, 77, 64, "short", id="2-77-64"),       # ragged against the 128-step chunk
+    pytest.param(1, 200, 130, "short", id="1-200-130"),   # W not a multiple of 128, ragged S
+    pytest.param(1, 256, 128, "short", id="1-256-128"),
+    pytest.param(2, 77, 64, "long", id="2-77-64-long"),   # a in [0.999, 1): h spans chunks
+    pytest.param(1, 200, 130, "long", id="1-200-130-long"),
+    pytest.param(1, 256, 128, "long", id="1-256-128-long"),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_scan_matches_pallas_and_ref(B, S, W, dtype):
-    a, b = _coeffs(B, S, W, seed=B + S + W)
+def test_plain_scan_matches_pallas_and_ref(B, S, W, memory, dtype):
+    if memory == "long":
+        a, b = _long_memory("long", B, S, W, seed=B + S + W)
+    else:
+        a, b = _coeffs(B, S, W, seed=B + S + W)
     ja, jb = jnp.asarray(a, dtype), jnp.asarray(b, dtype)
     pallas = jax_lru_scan(ja, jb, use_pallas=True)
     ref = jax_scan_ref(ja, jb)
@@ -65,6 +93,74 @@ def test_plain_scan_matches_pallas_and_ref(B, S, W, dtype):
     out = out.float().numpy()
     np.testing.assert_allclose(out, np.asarray(pallas, np.float32), **TOL[dtype])
     np.testing.assert_allclose(out, np.asarray(ref, np.float32), **TOL[dtype])
+
+
+def _chunked_emulation(a: torch.Tensor, b: torch.Tensor, L: int, G: int = 8) -> torch.Tensor:
+    """The CUDA kernel's arithmetic, step for step, in f32 on the CPU (each
+    product and sum rounded on its own, as the kernel's __fmul_rn and
+    __fadd_rn): chunk summaries A = prod a, H = the chunk's h from 0 (pass
+    1); the carry pass over the first nc - 1 summaries, cut into G segments
+    that are composed, chained in order, then re-walked (pass 2); each chunk
+    re-walked from its carry-in (pass 3)."""
+    B, S, W = a.shape
+    nc = -(-S // L)
+    pad = nc * L - S                      # identity steps: exact, and never written
+    af = torch.cat([a.float(), torch.ones(B, pad, W)], 1).reshape(B, nc, L, W)
+    bf = torch.cat([b.float(), torch.zeros(B, pad, W)], 1).reshape(B, nc, L, W)
+    A, H = torch.ones(B, nc, W), torch.zeros(B, nc, W)
+    for i in range(L):
+        H = af[:, :, i] * H + bf[:, :, i]
+        A = A * af[:, :, i]
+    n = nc - 1
+    per = -(-n // G)
+    segs = [(min(n, g * per), min(n, g * per + per)) for g in range(G)]
+    seg_a, seg_h = [], []
+    for c0, c1 in segs:
+        sa, sh = torch.ones(B, W), torch.zeros(B, W)
+        for c in range(c0, c1):
+            sh = A[:, c] * sh + H[:, c]
+            sa = sa * A[:, c]
+        seg_a.append(sa)
+        seg_h.append(sh)
+    carry = torch.zeros(B, nc, W)
+    for g, (c0, c1) in enumerate(segs):
+        h = torch.zeros(B, W)
+        for k in range(g):
+            h = seg_a[k] * h + seg_h[k]
+        for c in range(c0, c1):
+            h = A[:, c] * h + H[:, c]
+            carry[:, c + 1] = h
+    out, h = torch.empty(B, nc, L, W), carry
+    for i in range(L):
+        h = af[:, :, i] * h + bf[:, :, i]
+        out[:, :, i] = h
+    return out.reshape(B, nc * L, W)[:, :S].to(a.dtype)
+
+
+@pytest.mark.parametrize("S_of", ["1", "L", "L+1", "77", "300"])
+@pytest.mark.parametrize("L", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_emulation_matches_plain_and_reference(S_of, L, dtype):
+    """On inputs whose h carries across chunks (a near 1, a = 1, resets),
+    the kernel's chunked arithmetic stays within chip_smoke.py's LRU_TOL of
+    the sequential plain scan, and of the JAX reference's associative scan
+    and Pallas kernel; one chunk equals the plain scan to the bit."""
+    S = {"1": 1, "L": L, "L+1": L + 1, "77": 77, "300": 300}[S_of]
+    B, W = 2, 48
+    for seed, kind in enumerate(("long", "one", "reset")):
+        a, b = _long_memory(kind, B, S, W, seed=100 * S + L + seed)
+        ta, tb = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in (a, b))
+        out = _chunked_emulation(ta, tb, L)
+        assert out.dtype == ta.dtype and out.shape == (B, S, W)
+        plain = lru_scan_ref(ta, tb)
+        if S <= L:
+            assert torch.equal(out, plain)
+        out = out.float().numpy()
+        np.testing.assert_allclose(out, plain.float().numpy(), **LRU_TOL[dtype], err_msg=kind)
+        ja, jb = jnp.asarray(a, dtype), jnp.asarray(b, dtype)
+        for ref in (jax_scan_ref(ja, jb), jax_lru_scan(ja, jb, use_pallas=True)):
+            np.testing.assert_allclose(out, np.asarray(ref, np.float32), **LRU_TOL[dtype],
+                                       err_msg=kind)
 
 
 def test_decode_step_matches_ref():
