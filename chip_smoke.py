@@ -29,13 +29,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                 by CUDA events as the others (the host's enqueue included);
                 holds the SSD kernel's gradient rule
                 (autograd through the Function) against autograd through the
-                plain version, and times it;
+                plain version, and times it; holds the flash kernel's
+                autograd Function at the training shapes (its forward output
+                against the plain version, its rule, a plain recompute,
+                against an f64 autograd, in f32 and bf16) and the RG-LRU
+                scan's rule (a reversed scan that launches the kernel once
+                more) against autograd through the plain scan in f32 and an
+                f64 autograd in bf16 (bf16 errors over the gradient's scale),
+                and times each rule beside its bound (flash's in f32 and bf16,
+                beside SDPA's backward);
   4. model    — granite-smoke and recurrentgemma-smoke in float32 on the card
                 against the same seeded weights on the CPU: prefill, decode
                 and every cache leaf, with the kernel launches per prefill;
-                mamba2-smoke training in float32, card against CPU: the loss
-                and every gradient leaf of one step, then a 3-step loss
-                curve, with the SSD launches per step;
+                mamba2-smoke, tiny-smoke, granite-smoke and
+                recurrentgemma-smoke training in float32, card against CPU:
+                the loss and every gradient leaf of one step, then a 3-step
+                (mamba2) or 2-step loss and grad_norm curve, with the kernel
+                launches per step;
   5. serving  — granite-8b at full width (36 x 4096, bf16), then
                 recurrentgemma-2b at full width (26 layers, 2560 wide, bf16),
                 weights made on the card from a seed, each serving 8 requests
@@ -45,20 +55,24 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                 torch.profiler: host and device time of the prefill and decode
                 spans, the device's idle share, the port kernels' time and the
                 kernels that take the most device time;
-  7. training — mamba2-130m at full width (24 layers, d_model 768, bf16
-                activations over f32 master params and moments) trained for
-                6 steps of 8 x 2048 tokens through train_loop, the SSD launch
-                count set to 0 just before and read just after (24 per step);
-                loss per step (the first within 0.2 of ln(vocab), the last
-                below the first), ms/step, tokens/s, peak memory; then one
-                more step of the same state under torch.profiler: kernel time
-                by name, the SSD kernel's and the gradient rule's shares, and
-                the device's idle share.
-A summary block follows (card, build time, each kernel's registers, spills,
-shared memory and tensor-core and cp.async instruction counts, the kernel
-times beside their bounds, the serving and training numbers). The last line
-is {"ok": true, "device": {...}}; the line before it holds the per-kernel
-record. Imports nothing of JAX or of the JAX package.
+  7. training — at full width through train_loop, f32 master params and
+                moments: mamba2-130m (bf16 activations, 6 steps of 8 x 2048
+                tokens), tiny (f32, 6 steps of 8 x 2048) and recurrentgemma-2b
+                (bf16, 6 steps of 4 x 2048 in 4 microbatches); the launch
+                counts set to 0 just before and read just after each run and
+                matched exactly (per step: one SSD launch per ssm layer, one
+                flash launch per attention layer, two scans per rglru layer,
+                times the microbatches); losses (the first near ln V plus
+                half the logits' variance, the last below the first),
+                grad_norm, ms/step, tokens/s, peak memory; then one more step
+                of each under torch.profiler: kernel time, the port kernels'
+                and their gradient rules' shares, the device's idle share.
+A summary block follows (card, build time, each library's registers,
+spills, shared memory and tensor-core and cp.async instruction counts, the
+kernel and rule times beside their bounds, the serving and training
+numbers). The whole output stays under 20,000 bytes.
+The last line is {"ok": true, "device": {...}}; the line before it holds
+the per-kernel record. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -87,7 +101,9 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_module  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.rglru import kernel as lru_module  # noqa: E402
+from repro_torch.kernels.rglru import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.rglru import lru_scan_kernel, lru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_module  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
@@ -126,6 +142,21 @@ TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
 LRU_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
            torch.bfloat16: dict(atol=2e-5, rtol=8e-3)}
 MODEL_TOL = dict(atol=1e-3, rtol=1e-3)      # whole model, float32, card vs CPU
+# Gradient rules in bf16, against an f64 autograd of the plain version on the
+# same bf16 inputs, as max |err| / max |ref| (the gradient's scale): bf16
+# keeps 8 significant bits, so one rounding moves a value by at most 2^-8
+# (0.4 %) of itself; flash's rule rounds each gradient once, the scan's da
+# three times (its lambda and the saved h, each in a's dtype, then the
+# product), at most 1.2 % of the scale; 2 % leaves room for the f32 sums.
+BF16_GRAD_REL = 2e-2
+# The scan's rule in f32 against an f64 autograd: its error may be twice the
+# plain autograd's (as for the forward scan), or 16 ulps of the gradient's
+# scale where the plain error happens to fall near 0.
+F32_GRAD_FLOOR = 16 * 2.0 ** -24
+# The flash rule in f32 (autograd through attention_ref) against an f64
+# autograd, as max |err| / max |ref|: f32's TOL, whose rtol sits far above
+# the f32 sums' roundings (about sqrt(S) 2^-24, 3e-6 at S=2048).
+F32_FLASH_GRAD_REL = TOL[torch.float32]["rtol"]
 T_START = time.perf_counter()
 
 
@@ -163,18 +194,33 @@ def bound(t_ops: float, t_bytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def attention_bound(B, Sq, Sk, H, K, D, causal, window=None):
-    """Least time (ms) for bf16 attention on these inputs: each input read and
-    the output written once; QK^T and PV over the (q, k) pairs the mask keeps
-    (q and k positions both counted from 0)."""
+def _pairs(Sq, Sk, causal, window) -> int:
+    """(q, k) pairs the mask keeps, q and k positions both counted from 0."""
     def keys(i):
         hi = min(i + 1, Sk) if causal else Sk
         lo = max(0, i - window + 1) if window else 0
         return max(0, hi - lo)
-    pairs = sum(keys(i) for i in range(Sq))
-    flops = 4 * B * H * D * pairs
+    return sum(keys(i) for i in range(Sq))
+
+
+def attention_bound(B, Sq, Sk, H, K, D, causal, window=None):
+    """Least time (ms) for bf16 attention on these inputs: each input read and
+    the output written once; QK^T and PV over the (q, k) pairs the mask keeps."""
+    flops = 4 * B * H * D * _pairs(Sq, Sk, causal, window)
     nbytes = 2 * B * D * (2 * Sq * H + 2 * Sk * K)
     return bound(flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3)
+
+
+def attention_grad_bound(B, S, H, K, D, window=None, dt=torch.bfloat16):
+    """Least time (ms) for the gradient of causal attention in ``dt``: q, k, v
+    and the cotangent read once, dq, dk and dv written once; five products
+    over the kept (q, k) pairs (QK^T again, since P is not an input, then dV,
+    dP, dQ and dK), on the tensor cores in bf16, on the FMA units in f32 (TF32
+    stays off)."""
+    flops = 10 * B * H * D * _pairs(S, S, True, window)
+    nbytes = dt.itemsize * B * S * D * (3 * H + 4 * K)
+    peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+    return bound(flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3)
 
 
 def lru_bound(B, S, W, itemsize):
@@ -182,6 +228,14 @@ def lru_bound(B, S, W, itemsize):
     f32 product and one sum per element."""
     return bound(2 * B * S * W / PEAK_F32_FLOPS * 1e3,
                  3 * B * S * W * itemsize / PEAK_BYTES * 1e3)
+
+
+def lru_grad_bound(B, S, W, itemsize):
+    """Least time (ms) for the scan's gradient: a, h and the cotangent read
+    once, da and db written once; the reversed scan's product and sum and
+    da's product per element, in f32."""
+    return bound(3 * B * S * W / PEAK_F32_FLOPS * 1e3,
+                 5 * B * S * W * itemsize / PEAK_BYTES * 1e3)
 
 
 def to_device(tree, device):
@@ -219,10 +273,15 @@ def launches_per_prefill(cfg) -> dict:
             "lru_scan": kinds.count("rglru"), "ssd_scan": 0}
 
 
-def launches_per_train_step(cfg) -> dict:
-    """One SSD launch per ssm layer in each step's forward; the backward is
-    the plain gradient rule and launches nothing."""
-    return {**NO_LAUNCHES, "ssd_scan": tfm.layer_kinds(cfg).count("ssm")}
+def launches_per_train_step(cfg, microbatches: int = 1) -> dict:
+    """Per microbatch, the forward launches flash once per attention layer,
+    the scan once per rglru layer and the SSD kernel once per ssm layer; in
+    the backward, the scan's rule launches the scan once more, and the flash
+    and SSD rules (plain recomputes) launch nothing."""
+    kinds = tfm.layer_kinds(cfg)
+    per_mb = {"flash_attention": sum(k in ("attn", "local_attn") for k in kinds),
+              "lru_scan": 2 * kinds.count("rglru"), "ssd_scan": kinds.count("ssm")}
+    return {k: n * microbatches for k, n in per_mb.items()}
 
 
 # --------------------------------------------------------------------- phases
@@ -747,13 +806,201 @@ def check_ssd_grad(gen, dev) -> dict:
     return dict(shape=name, max_abs_err=check.errs[torch.bfloat16], ms=ms)
 
 
+def rel_err(x, ref) -> float:
+    """max |x - ref| / max |ref|: an error over the gradient's scale."""
+    return ((x.double() - ref).abs().max() / ref.abs().max().clamp(min=1e-300)).item()
+
+
+def report_rel(name: str, rel: list) -> None:
+    """bf16 gradients (label, rule err, plain err), each over its scale."""
+    worst = max(rel, key=lambda r: r[1])
+    log(f"[kernels] {name} bf16 against an f64 autograd: {len(rel)} gradients, worst "
+        f"{worst[1]:.3e} of the gradient's scale (plain autograd in bf16 {worst[2]:.3e}) "
+        f"at {worst[0]} (limit {BF16_GRAD_REL:g})")
+    if worst[1] > BF16_GRAD_REL:
+        fail(f"{name} is off by {worst[1]:.3e} of the gradient's scale at {worst[0]}")
+
+
+def attention_f64(q, k, v, *, causal: bool, window: int | None):
+    """attention_ref's function in f64 (attention_ref computes in f32)."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.double().reshape(B, Sq, K, H // K, D),
+                     k.double()) * D ** -0.5
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    keep = kpos <= qpos if causal else torch.ones_like(kpos - qpos, dtype=torch.bool)
+    if window is not None:
+        keep &= qpos - kpos < window
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", p, v.double()).reshape(B, Sq, H, D)
+
+
+# (B, S, H, K, D, window), causal: a small ragged case, tiny's training shape,
+# recurrentgemma-2b's, and a window that bites; each in f32 and bf16.
+FLASH_GRAD_CASES = [(2, 77, 4, 2, 16, None), (8, 2048, 8, 4, 64, None),
+                    (1, 2048, 10, 1, 256, 2048), (1, 1000, 10, 1, 256, 256)]
+# The rule is timed at tiny's shape in f32 (tiny's own precision) and bf16
+# (recurrentgemma-2b's precision), and at recurrentgemma-2b's shape in bf16.
+FLASH_GRAD_TIMED = [(8, 2048, 8, 4, 64, None, torch.float32),
+                    (8, 2048, 8, 4, 64, None, torch.bfloat16),
+                    (1, 2048, 10, 1, 256, 2048, torch.bfloat16)]
+# (kind, B, S, W): recurrentgemma-2b's width at its training length and at a
+# length that is no multiple of any chunk, on uniform and long-memory
+# inputs, and a small ragged case with a = 1; the rule is timed at bf16
+# LRU_GRAD_TIMED.
+LRU_GRAD_CASES = [("uniform", 1, 2048, 2560), ("long", 1, 2048, 2560),
+                  ("reset", 1, 2500, 2560), ("one", 2, 77, 130)]
+LRU_GRAD_TIMED = (1, 2048, 2560)
+
+
+def check_flash_grad(gen, dev) -> list:
+    """The flash kernel's autograd Function on the card (forward: the kernel,
+    one launch; backward: flash_vjp) at FLASH_GRAD_CASES: its forward output
+    against attention_ref at TOL, and its gradients against an f64 autograd
+    over the gradient's scale, in f32 (F32_FLASH_GRAD_REL) and bf16
+    (BF16_GRAD_REL, beside autograd through attention_ref in bf16; in f32
+    flash_vjp is that autograd itself). Then the rule's time at
+    FLASH_GRAD_TIMED, beside SDPA's backward and the bound."""
+    check, rel, rel32 = Cases("flash_attention autograd Function forward"), [], []
+    for (B, S, H, K, D, window) in FLASH_GRAD_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+            g = torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
+            label = f"B={B} S={S} H={H} K={K} D={D} window={window} {str(dt)[6:]}"
+            x = [t.clone().requires_grad_() for t in (q, k, v)]
+            reset_counts()
+            out = flash_ops._FlashKernel.apply(*x, True, window)
+            out.backward(g)
+            if read_counts() != {**NO_LAUNCHES, "flash_attention": 1}:
+                fail(f"flash gradient rule at {label} launched {read_counts()}")
+            y = [t.clone().requires_grad_(dt == torch.bfloat16) for t in (q, k, v)]
+            ref = attention_ref(*y, causal=True, window=window)
+            check.check(f"out {label}", out.detach(), ref.detach(), TOL[dt], key=(S, D, dt))
+            for name, a in zip("qkv", x):
+                if a.grad.dtype != dt:
+                    fail(f"flash gradient rule: d{name} has dtype {a.grad.dtype} for {dt}")
+            z = [t.double().requires_grad_() for t in (q, k, v)]
+            attention_f64(*z, causal=True, window=window).backward(g.double())
+            if dt == torch.bfloat16:
+                ref.backward(g)
+                rel += [(f"d{name} {label}", rel_err(a.grad, c.grad), rel_err(b.grad, c.grad))
+                        for name, a, b, c in zip("qkv", x, y, z)]
+            else:
+                rel32 += [(f"d{name} {label}", rel_err(a.grad, c.grad))
+                          for name, a, c in zip("qkv", x, z)]
+            del x, y, z, out, ref
+    check.report()
+    worst = max(rel32, key=lambda r: r[1])
+    log(f"[kernels] flash_attention gradient rule f32 against an f64 autograd: {len(rel32)} "
+        f"gradients, worst {worst[1]:.3e} of the gradient's scale at {worst[0]} "
+        f"(limit {F32_FLASH_GRAD_REL:g})")
+    if worst[1] > F32_FLASH_GRAD_REL:
+        fail(f"flash_attention gradient rule is off by {worst[1]:.3e} of the gradient's "
+             f"scale at {worst[0]}")
+    report_rel("flash_attention gradient rule", rel)
+
+    timings = []
+    for (B, S, H, K, D, window, dt) in FLASH_GRAD_TIMED:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+        g = torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
+        ms = time_ms(lambda: flash_ops.flash_vjp(g, q, k, v, causal=True, window=window),
+                     iters=5)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        mask = None
+        if window is not None and window < S:        # else the window keeps every causal pair
+            qpos = torch.arange(S, device=dev)[:, None]
+            kpos = torch.arange(S, device=dev)[None, :]
+            mask = (kpos <= qpos) & (qpos - kpos < window)
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+        gt = g.transpose(1, 2).contiguous()
+        lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+        bound_ms, bound_by = attention_grad_bound(B, S, H, K, D, window, dt)
+        label = f"B={B} S={S} H={H} K={K} D={D} window={window} {str(dt)[6:]}"
+        timings.append(dict(shape=f"{str(dt)[6:]} causal {label[:label.rindex(' ')]}", ms=ms,
+                            library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            forward_max_abs_err=check.errs[(S, D, dt)],
+                            max_rel_err=max(r[1] for r in rel + rel32 if label in r[0])))
+        del out, qt, kt, vt
+    return timings
+
+
+def check_lru_grad(gen, dev) -> list:
+    """The scan's autograd Function on the card (forward: the kernel;
+    backward: lru_scan_vjp, one more launch of the kernel) against autograd
+    through lru_scan_ref and through an f64 walk: in f32 its error against
+    the f64 gradient may be twice the plain autograd's (or F32_GRAD_FLOOR of
+    the scale), in bf16 BF16_GRAD_REL of the scale; at LRU_GRAD_CASES. Then
+    the rule's time at LRU_GRAD_TIMED in bf16, beside autograd through the
+    plain scan and the bound."""
+    gen_g = torch.Generator(device=dev).manual_seed(2)   # leaves `gen`'s draws alone
+    f32, rel = [], []
+    for (kind, B, S, W) in LRU_GRAD_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            if kind == "uniform":
+                a = torch.rand((B, S, W), generator=gen_g, device=dev).to(dt)
+                b = torch.randn((B, S, W), generator=gen_g, device=dev).to(dt)
+            else:
+                a, b = long_memory_inputs(kind, B, S, W, dt, gen_g, dev)
+            g = torch.randn((B, S, W), generator=gen_g, device=dev).to(dt)
+            label = f"{kind} B={B} S={S} W={W} {str(dt)[6:]}"
+            x = [t.clone().requires_grad_() for t in (a, b)]
+            reset_counts()
+            h = lru_ops._LRUScanKernel.apply(*x)
+            forward = lru_scan_kernel.launches
+            h.backward(g)
+            if (forward, lru_scan_kernel.launches) != (1, 2):
+                fail(f"lru_scan gradient rule at {label}: {forward} forward and "
+                     f"{lru_scan_kernel.launches - forward} backward launches, expected 1 and 1")
+            y = [t.clone().requires_grad_() for t in (a, b)]
+            lru_scan_ref(*y).backward(g)
+            z = [t.double().requires_grad_() for t in (a, b)]
+            scan_f64(*z).backward(g.double())
+            for name, tx, ty, tz in zip(("da", "db"), x, y, z):
+                if tx.grad.dtype != dt:
+                    fail(f"lru_scan gradient rule: {name} has dtype {tx.grad.dtype} for {dt}")
+                if dt == torch.float32:
+                    f32.append((f"{name} {label}", (tx.grad.double() - tz.grad).abs().max().item(),
+                                (ty.grad.double() - tz.grad).abs().max().item(),
+                                tz.grad.abs().max().item()))
+                else:
+                    rel.append((f"{name} {label}", rel_err(tx.grad, tz.grad),
+                                rel_err(ty.grad, tz.grad)))
+            del x, y, z
+    worst = max(f32, key=lambda r: r[1] / max(2 * r[2], F32_GRAD_FLOOR * r[3]))
+    log(f"[kernels] lru_scan gradient rule f32 against an f64 autograd: {len(f32)} gradients, "
+        f"worst rule/plain error {worst[1]:.3e}/{worst[2]:.3e} at {worst[0]} (limit 2x, or "
+        f"{F32_GRAD_FLOOR:.1e} of the scale {worst[3]:.3e}); one scan launched in each backward")
+    if worst[1] > max(2 * worst[2], F32_GRAD_FLOOR * worst[3]):
+        fail(f"lru_scan gradient rule's f32 error exceeds its limit at {worst[0]}")
+    report_rel("lru_scan gradient rule", rel)
+
+    B, S, W = LRU_GRAD_TIMED
+    a = torch.rand((B, S, W), generator=gen_g, device=dev).bfloat16()
+    b, g = (torch.randn((B, S, W), generator=gen_g, device=dev).bfloat16() for _ in range(2))
+    h = lru_scan_kernel(a, b)
+    ms = time_ms(lambda: lru_ops.lru_scan_vjp(g, a, h))
+    y = [t.clone().requires_grad_() for t in (a, b)]
+    hp = lru_scan_ref(*y)
+    plain_ms = time_ms(lambda: torch.autograd.grad(hp, y, g, retain_graph=True),
+                       iters=2, warmup=1)
+    bound_ms, bound_by = lru_grad_bound(B, S, W, 2)
+    return [dict(shape=f"bf16 B={B} S={S} W={W}", ms=ms, plain_ms=plain_ms, library_ms=None,
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 max_rel_err=max(r[1] for r in rel if "bfloat16" in r[0]))]
+
+
 def phase_kernels(dev, old: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     flash = check_flash(gen, dev, old.get("flash_attention"))
     lru, lru_launch = check_lru(gen, dev, old.get("lru_scan"))
     return {"flash": flash, "lru": lru, "lru_launch": lru_launch,
             "ssd": check_ssd(gen, dev, old.get("ssd_scan")),
-            "ssd_grad": check_ssd_grad(gen, dev)}
+            "ssd_grad": check_ssd_grad(gen, dev),
+            "flash_grad": check_flash_grad(gen, dev), "lru_grad": check_lru_grad(gen, dev)}
 
 
 def model_check(dev, arch: str, B: int, S: int, pos: list[int], max_len: int) -> None:
@@ -792,12 +1039,14 @@ def model_check(dev, arch: str, B: int, S: int, pos: list[int], max_len: int) ->
         fail(f"{cfg.name} prefill launched {launches}, expected {expect}")
 
 
-def train_check(dev) -> None:
-    """mamba2-smoke in float32, card against CPU from one set of seeded
-    params: the loss and every gradient leaf of one step, then a 3-step loss
-    curve through make_train_step, with the SSD launches per step."""
-    cfg = configs.get_smoke("mamba2-130m").replace(dtype="float32")
-    batches = [make_batch(cfg, 2, 100, seed=0, step=i) for i in range(3)]  # ragged vs chunk 32
+def train_check(dev, arch: str, steps: int) -> None:
+    """``arch``'s smoke config in float32, card against CPU from one set of
+    seeded params: the loss and every gradient leaf of one step, then the
+    loss and grad_norm of ``steps`` steps through make_train_step, with the
+    kernel launches per step."""
+    cfg = configs.get_smoke(arch).replace(dtype="float32")
+    # ragged against mamba2-smoke's chunk of 32; past recurrentgemma-smoke's window of 32
+    batches = [make_batch(cfg, 2, 100, seed=0, step=i) for i in range(steps)]
     res, counts = {}, {}
     for device in ("cpu", dev):
         # the same seeded draw on the CPU for each device (a train step
@@ -817,7 +1066,7 @@ def train_check(dev) -> None:
         for b in batches:
             reset_counts()
             state, metrics = step(state, to_device(b, device))
-            curve.append(metrics["loss"].item())
+            curve.append([metrics["loss"].item(), metrics["grad_norm"].item()])
             per_step.append(read_counts())
         res[str(device)] = (one, torch.tensor(curve))
         counts[str(device)] = per_step
@@ -827,13 +1076,13 @@ def train_check(dev) -> None:
     expect = launches_per_train_step(cfg)
     log(f"[model] {cfg.name} training f32 card vs CPU, batch 2 x 100: loss "
         f"{cpu_one['loss'].item():.6f} err {errs['loss']:.3e}, {len(errs) - 1} grad "
-        f"leaves, worst {worst} {errs[worst]:.3e}; 3-step loss curve card "
-        f"{card_curve.tolist()} CPU {cpu_curve.tolist()} (atol=rtol=1e-3); launches "
-        f"per step {counts[str(dev)]}, expected {expect}")
+        f"leaves, worst {worst} {errs[worst]:.3e}; {steps} steps' loss and grad_norm "
+        f"worst err {(card_curve - cpu_curve).abs().max().item():.3e} (atol=rtol=1e-3); "
+        f"launches per step {counts[str(dev)][0]}")
     if not all(torch.allclose(card_one[k], cpu_one[k], **MODEL_TOL) for k in cpu_one):
         fail(f"{cfg.name} training on the card disagrees with the CPU")
     if not torch.allclose(card_curve, cpu_curve, **MODEL_TOL):
-        fail(f"{cfg.name} loss curve on the card disagrees with the CPU")
+        fail(f"{cfg.name} loss or grad_norm curve on the card disagrees with the CPU")
     if any(c != NO_LAUNCHES for c in counts["cpu"]):
         fail(f"the CPU path launched kernels: {counts['cpu']}")
     if any(c != expect for c in counts[str(dev)]):
@@ -844,7 +1093,9 @@ def phase_model(dev) -> None:
     model_check(dev, "granite-8b", B=2, S=37, pos=[37, 30], max_len=64)
     # longer than the smoke window of 32: the local-attention ring rolls
     model_check(dev, "recurrentgemma-2b", B=2, S=45, pos=[45, 33], max_len=64)
-    train_check(dev)
+    train_check(dev, "mamba2-130m", steps=3)
+    for arch in ("tiny", "granite-8b", "recurrentgemma-2b"):
+        train_check(dev, arch, steps=2)
 
 
 def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) -> dict:
@@ -931,6 +1182,14 @@ def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) 
             "tokens": tokens, "steps": n_steps, "peak_gib": peak / 2**30}
 
 
+def top_kernels(kernels, busy_ms: float, n: int = 2) -> str:
+    """The ``n`` kernels that take the most device time, on one line."""
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n]
+    return "; ".join(f"{e.self_device_time_total / 1e3:.3f} ms "
+                     f"({e.self_device_time_total / 1e3 / max(busy_ms, 1e-9):.1%}) x{e.count} "
+                     f"{e.key[:40]}" for e in top)
+
+
 def phase_profile(serve: dict) -> None:
     """Serve phase 5's 8 requests again, under torch.profiler. Greedy decoding
     on the same weights repeats phase 5's schedule exactly (8 prefills, the
@@ -989,9 +1248,7 @@ def phase_profile(serve: dict) -> None:
     log(f"[profile] {arch} port kernels: flash attention {port_us['flash'] / 1e3:.3f} ms "
         f"({port_us['flash'] / max(busy_us, 1):.1%}), RG-LRU scan "
         f"{port_us['lru'] / 1e3:.3f} ms ({port_us['lru'] / max(busy_us, 1):.1%})")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
-        log(f"[profile] {arch} kernel {e.self_device_time_total / 1e3:9.3f} ms "
-            f"{e.self_device_time_total / max(busy_us, 1):6.1%} x{e.count:<5} {e.key[:70]}")
+    log(f"[profile] {arch} top kernels: " + top_kernels(kernels, busy_us / 1e3))
     serve["profile"] = {"busy_ms": busy_us / 1e3, "idle": 1 - busy_us / untraced_wall_us,
                         "flash_ms": port_us["flash"] / 1e3, "lru_ms": port_us["lru"] / 1e3}
 
@@ -1013,88 +1270,126 @@ def serve_and_profile(dev, arch: str, **kw) -> dict:
     return result
 
 
-TRAIN = dict(steps=6, global_batch=8, seq_len=2048, seed=0)
+TRAIN = dict(steps=6, seq_len=2048, seed=0)
+# Per arch: global batch and microbatches. recurrentgemma-2b's f32 state
+# (params, two moments, gradients) is 43.1 GiB, so it takes 4 rows of 2048
+# tokens as 4 microbatches of one row.
+TRAIN_RUNS = {"mamba2-130m": dict(global_batch=8, microbatches=1),
+              "tiny": dict(global_batch=8, microbatches=1),
+              "recurrentgemma-2b": dict(global_batch=4, microbatches=4)}
+# The first loss of a random init: logits z = x W, x of unit rms (the final
+# norm) and W of std s (D^-0.5 unembedding, 0.02 tied embedding), so var(z) =
+# D s^2 and E[logsumexp] of V such logits is ln V + var(z) / 2. The skew of
+# the synthetic tokens moves the first loss from it by a few tenths at most:
+# 0.2 with tied logits, 0.25 with untied ones, whose larger spread (var 1)
+# lets the skew move the loss further (tiny reads 0.21 below).
+def first_loss_tol(cfg) -> float:
+    return 0.2 if cfg.tie_embeddings else 0.25
 
 
-def phase_train(dev) -> dict:
-    """mamba2-130m at full width through train_loop, the entry point the
-    launcher and a cluster job call, on the card, 6 steps of 8 x 2048
-    tokens at --lr 3e-4; the kernel counts are set to 0 just before and read
-    just after. Step times come from the host clock between the loop's
-    per-step metric reads, each of which synchronises."""
-    cfg = configs.get("mamba2-130m")
+def first_loss_expected(cfg) -> float:
+    var = cfg.d_model * 0.02 ** 2 if cfg.tie_embeddings else 1.0
+    return math.log(cfg.vocab_size) + var / 2
+
+
+def phase_train(dev, arch: str) -> dict:
+    """``arch`` at full width through train_loop, the entry point the
+    launcher and a cluster job call, on the card, 6 steps at --lr 3e-4; the
+    kernel counts are set to 0 just before and read just after, and must
+    match launches_per_train_step exactly. Step times come from the host
+    clock between the loop's per-step metric reads, each of which
+    synchronises."""
+    cfg, run = configs.get(arch), TRAIN_RUNS[arch]
     opt = OptConfig(lr=3e-4)
-    stamps, losses = [], []
+    stamps, history = [], []
 
     def on_metrics(step, m):
         stamps.append(time.perf_counter())
-        losses.append(m["loss"])
-        log(f"[train] step {step}: loss {m['loss']:.6f} grad_norm {m['grad_norm']:.4f} "
-            f"lr {m['lr']:.3e}")
+        history.append(m)
 
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()                        # count the main path's run only
     t0 = time.perf_counter()
-    result = train_loop(cfg, opt=opt, log_every=1, on_metrics=on_metrics,
-                        device=dev, **TRAIN)
+    result = train_loop(cfg, opt=opt, log_every=1, on_metrics=on_metrics, device=dev,
+                        **run, **TRAIN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in history]
     step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
     steady = step_s[1:]                   # step 0 also pays cuBLAS and allocator set-up
-    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
-    expect = {k: n * TRAIN["steps"] for k, n in launches_per_train_step(cfg).items()}
-    log(f"[train] {cfg.name} {cfg.num_layers} x {cfg.d_model}, "
-        f"{cfg.param_count():,} params (f32 masters and moments), activations "
-        f"{cfg.dtype}, {TRAIN['steps']} steps of {TRAIN['global_batch']} x "
-        f"{TRAIN['seq_len']} tokens: wall {wall:.4f} s (params made on the card "
-        f"included); step 0 {1e3 * step_s[0]:.3f} ms; steps 1-{len(steady)} mean "
+    tokens = run["global_batch"] * TRAIN["seq_len"]
+    expect = {k: n * TRAIN["steps"]
+              for k, n in launches_per_train_step(cfg, run["microbatches"]).items()}
+    log(f"[train] {arch} {cfg.num_layers} x {cfg.d_model}, {cfg.param_count():,} params "
+        f"(f32 masters and moments), activations {cfg.dtype}, {TRAIN['steps']} steps of "
+        f"{run['global_batch']} x {TRAIN['seq_len']} tokens in {run['microbatches']} "
+        f"microbatch(es): wall {wall:.4f} s (params made on the card included); step 0 "
+        f"{1e3 * step_s[0]:.3f} ms; steps 1-{len(steady)} mean "
         f"{1e3 * statistics.mean(steady):.3f} ms, median "
         f"{1e3 * statistics.median(steady):.3f} ms per step, "
         f"{tokens / statistics.mean(steady):.1f} tokens/s; peak memory "
         f"{peak / 2**30:.3f} GiB; launches {launches}")
-    log(f"[train] card during run: "
-        f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    log(f"[train] {arch} losses {[round(x, 6) for x in losses]} (first expected "
+        f"{first_loss_expected(cfg):.4f}), grad_norm "
+        f"{[round(m['grad_norm'], 4) for m in history]}, lr {history[-1]['lr']:.3e}; card "
+        f"during run: {nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     if result.status != "done" or result.step != TRAIN["steps"] or len(losses) != TRAIN["steps"]:
-        fail(f"training ended {result.status} at step {result.step}")
+        fail(f"{arch} training ended {result.status} at step {result.step}")
     if not all(math.isfinite(x) for x in losses):
-        fail(f"non-finite loss: {losses}")
-    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.2:
-        fail(f"first loss {losses[0]:.4f} is not within 0.2 of ln(vocab) "
-             f"{math.log(cfg.vocab_size):.4f}")
+        fail(f"{arch}: non-finite loss: {losses}")
+    if abs(losses[0] - first_loss_expected(cfg)) > first_loss_tol(cfg):
+        fail(f"{arch}: first loss {losses[0]:.4f} is not within {first_loss_tol(cfg)} of "
+             f"ln V + var(logits)/2 = {first_loss_expected(cfg):.4f}")
     if not losses[-1] < losses[0]:
-        fail(f"the loss curve does not fall: {losses}")
+        fail(f"{arch}: the loss curve does not fall: {losses}")
     if launches != expect:
-        fail(f"training launched {launches}, expected {expect} "
-             f"({launches_per_train_step(cfg)} per step)")
-    return {"launches": launches, "cfg": cfg, "opt": opt,
+        fail(f"{arch} training launched {launches}, expected {expect}")
+    return {"arch": arch, "launches": launches, "cfg": cfg, "opt": opt, **run,
             "step_ms": statistics.mean(steady) * 1e3,
             "median_ms": statistics.median(steady) * 1e3,
             "tokens_s": tokens / statistics.mean(steady), "peak_gib": peak / 2**30,
             "losses": losses}
 
 
+# Gradient rules, each timed on the device under a label for the profiled step.
+RULES = ((ssd_ops, "ssd_vjp", "ssd_rule"), (flash_ops, "flash_vjp", "flash_rule"),
+         (lru_ops, "lru_scan_vjp", "lru_rule"))
+# The port's kernels by name: the SSD and flash forwards (their rules launch
+# none), and every scan (the forward and, in the rule, the reversed one).
+PORT_KERNELS = (("ssd_fwd", r"ssd_\w+_kernel"), ("flash_fwd", r"flash_fwd\w*_kernel"),
+                ("lru_scans", LRU_KERNELS))
+
+
+def _labelled(fn, label):
+    def run(*args, **kw):
+        with record_function(label):
+            return fn(*args, **kw)
+    return run
+
+
 def phase_train_profile(dev, train: dict) -> None:
-    """One train step of mamba2-130m at full width under torch.profiler, after
-    one untraced warm-up step of the same state and batch shape: kernel time
-    by name, the SSD kernel's share, the gradient rule's share (the device
-    time under a label put around ssd_vjp for this run), and the device's
-    idle share of the traced step and of phase 7's untraced mean step."""
-    cfg, opt = train["cfg"], train["opt"]
+    """One train step of phase 7's arch at full width under torch.profiler,
+    after one untraced warm-up step of the same state and batch shape:
+    kernel time, the port kernels' time by name and each gradient rule's
+    device time (under a label put around it for this run), and the
+    device's idle share of the traced step and of phase 7's untraced mean
+    step. Frees its state after."""
+    cfg, opt, arch, mb = train["cfg"], train["opt"], train["arch"], train["microbatches"]
     state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(1),
                              opt=opt, device=dev)
-    step = make_train_step(cfg, opt=opt)
-    batch = to_device(make_batch(cfg, TRAIN["global_batch"], TRAIN["seq_len"],
+    step = make_train_step(cfg, opt=opt, microbatches=mb)
+    batch = to_device(make_batch(cfg, train["global_batch"], TRAIN["seq_len"],
                                  seed=1, step=0), dev)
+    if mb > 1:
+        batch = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:]) for k, v in batch.items()}
     step(state, batch)[1]["loss"].item()
-    rule = ssd_ops.ssd_vjp
-
-    def labelled_rule(*args, **kw):
-        with record_function("ssd.grad_rule"):
-            return rule(*args, **kw)
-
-    ssd_ops.ssd_vjp = labelled_rule
+    rules = [(mod, name, getattr(mod, name)) for mod, name, _ in RULES]
+    for (mod, name, fn), (_, _, label) in zip(rules, RULES):
+        setattr(mod, name, _labelled(fn, label))
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with record_function("train.step"):
@@ -1103,42 +1398,53 @@ def phase_train_profile(dev, train: dict) -> None:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        ssd_ops.ssd_vjp = rule
-    spans = ("train.step", "ssd.grad_rule")
+        for mod, name, fn in rules:
+            setattr(mod, name, fn)
+    labels = ("train.step",) + tuple(label for *_, label in RULES)
     events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == DeviceType.CUDA and e.key not in spans]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in labels]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    ssd_ms = sum(e.self_device_time_total for e in kernels
-                 if re.search(r"ssd_\w+_kernel", e.key)) / 1e3
-    rule_ms = sum(e.device_time_total for e in events
-                  if e.key == "ssd.grad_rule" and e.device_type == DeviceType.CPU) / 1e3
-    log(f"[profile] mamba2-130m train step: kernels busy {busy_ms:.3f} ms; traced wall "
-        f"{wall_ms:.3f} ms (device idle {1 - busy_ms / wall_ms:.1%}); untraced mean step "
-        f"(phase 7) {train['step_ms']:.3f} ms (device idle "
-        f"{1 - busy_ms / train['step_ms']:.1%}); SSD kernel {ssd_ms:.3f} ms "
-        f"({ssd_ms / busy_ms:.1%}); gradient rule {rule_ms:.3f} ms ({rule_ms / busy_ms:.1%})")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"[profile] mamba2-130m kernel {e.self_device_time_total / 1e3:9.3f} ms "
-            f"{e.self_device_time_total / 1e3 / max(busy_ms, 1e-9):6.1%} x{e.count:<5} "
-            f"{e.key[:70]}")
-    if ssd_ms <= 0:
-        fail("the profiled train step shows no SSD kernel time")
-    train.update(busy_ms=busy_ms, ssd_ms=ssd_ms, rule_ms=rule_ms,
-                 idle=1 - busy_ms / train["step_ms"])
+    shares = {name: sum(e.self_device_time_total for e in kernels
+                        if re.search(pat, e.key)) / 1e3 for name, pat in PORT_KERNELS}
+    shares.update({label: sum(e.device_time_total for e in events
+                              if e.key == label and e.device_type == DeviceType.CPU) / 1e3
+                   for *_, label in RULES})
+    used = {k: v for k, v in shares.items() if v > 0}
+    log(f"[profile] {arch} train step ({mb} x {train['global_batch'] // mb} x "
+        f"{TRAIN['seq_len']}): kernels busy {busy_ms:.3f} ms; traced wall {wall_ms:.3f} ms "
+        f"(device idle {1 - busy_ms / wall_ms:.1%}); untraced mean step (phase 7) "
+        f"{train['step_ms']:.3f} ms (device idle {1 - busy_ms / train['step_ms']:.1%}); "
+        + ", ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%})" for k, v in used.items()))
+    log(f"[profile] {arch} train top kernels: " + top_kernels(kernels, busy_ms))
+    kinds = set(tfm.layer_kinds(cfg))
+    need = {"ssm": ("ssd_fwd", "ssd_rule"), "attn": ("flash_fwd", "flash_rule"),
+            "local_attn": ("flash_fwd", "flash_rule"), "rglru": ("lru_scans", "lru_rule")}
+    missing = [n for k in kinds for n in need[k] if n not in used]
+    if missing:
+        fail(f"the profiled {arch} train step shows no device time for {missing}")
+    train.update(busy_ms=busy_ms, shares=used, idle=1 - busy_ms / train["step_ms"])
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
-def record(name: str, source: str, replaces: str, launches: int, rec: dict,
-           kernels: dict, **extra) -> dict:
-    """One entry of the kernels line; ``kernels`` is the library's ptxas
-    information, from which the record takes registers and spills."""
+def train_and_profile(dev, arch: str) -> dict:
+    """Phase 7 and its profile for one arch."""
+    train = phase_train(dev, arch)
+    phase_train_profile(dev, train)
+    log(f"[time] {arch} trained and profiled at {time.perf_counter() - T_START:.1f} s")
+    return train
+
+
+def record(name: str, source: str, replaces: str, rec: dict, paths: dict, **extra) -> dict:
+    """One entry of the kernels line: ``launches`` sums the main paths' runs
+    (``paths``: {path: launches}), the numbers are ``rec``'s (phase 3)."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": rec["max_abs_err"],
+            "launches": sum(paths.values()), "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "old_design_ms": rec["old_ms"],
-            "registers": {fn: i["registers"] for fn, i in kernels.items()},
-            "spills": {fn: i["spill_bytes"] for fn, i in kernels.items()}, **extra}
+            "launches_by_path": paths, **extra}
 
 
 def dynamic_smem() -> dict:
@@ -1159,45 +1465,54 @@ def _ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f}"
 
 
-def summary(built: dict, recs: dict, granite: dict, rg: dict, train: dict) -> None:
+def summary(built: dict, recs: dict, serves: dict, trains: list) -> None:
     """The run in brief, just before the kernels line."""
     log(f"[summary] card {nvidia_smi('name,power.limit')}; build {built['seconds']:.3f} s")
     smem = dynamic_smem()
+    log("[summary] per kernel: registers, spill bytes, static (+ dynamic) shared memory "
+        "bytes, HMMA, LDGSTS")
     for name, kernels in built["info"].items():
-        for fn, i in kernels.items():
-            dyn = f", dynamic smem {smem[fn]} B" if fn in smem else ""
-            log(f"[summary] {fn:27s} {i['registers']:3d} registers, spills "
-                f"{i['spill_bytes']} B, static smem {i['static_smem']} B, HMMA "
-                f"{i.get('hmma', 0)}, LDGSTS {i.get('ldgsts', 0)}{dyn}")
+        log(f"[summary] {name}: " + "; ".join(
+            f"{fn} {i['registers']}, {i['spill_bytes']}, {i['static_smem']}"
+            + (f" + {smem[fn]}" if fn in smem else "")
+            + f", {i.get('hmma', 0)}, {i.get('ldgsts', 0)}" for fn, i in kernels.items()))
     rows = [("flash_attention", t) for t in recs["flash"].values()]
     rows += [("lru_scan", t) for t in recs["lru"].values()] + [("ssd_scan", recs["ssd"])]
-    log("[summary] bf16 times, ms: kernel (old design) | plain | library | bound")
-    for name, t in rows:
-        log(f"[summary] {name} {t['shape']}: {t['ms']:.4f} ({_ms(t['old_ms'])}) | "
-            f"{t['plain_ms']:.4f} | {_ms(t['library_ms'])} | {t['bound_ms']:.4f} "
-            f"{t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of bound")
+    log("[summary] bf16 kernel ms (old design), share of the bound; plain, library and "
+        "bound ms in the kernels line: " + "; ".join(
+            f"{name} {t['shape'][5:]} {t['ms']:.4f} ({_ms(t['old_ms'])}), "
+            f"{t['bound_ms'] / t['ms']:.1%}" for name, t in rows))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for S, t in recs["lru"].items():
         L, V, chunk, carry, apply = recs["lru_launch"][S]
-        log(f"[summary] lru_scan {t['shape']}: launched (the library's report) L={L}, "
-            f"V={V}, CTAs chunk {chunk}, carry {carry}, apply {apply} on {sms} SMs; "
-            f"device ms, L2 flushed {t['ms']:.4f} (old design {_ms(t['old_ms'])}), back "
-            f"to back {t['warm_ms']:.4f} (old design {_ms(t['old_warm_ms'])}); CUDA "
-            f"events with the host's enqueue {t['events_ms']:.4f} (old design "
-            f"{_ms(t['old_events_ms'])})")
-    log(f"[summary] ssd gradient rule {recs['ssd_grad']['ms']:.4f} ms per call")
-    for arch, r in (("granite-8b", granite), ("recurrentgemma-2b", rg)):
+        log(f"[summary] lru_scan S={S}: launched L={L}, V={V}, CTAs {chunk}/{carry}/{apply} "
+            f"on {sms} SMs; device ms L2 flushed {t['ms']:.4f} (old {_ms(t['old_ms'])}), "
+            f"back to back {t['warm_ms']:.4f} (old {_ms(t['old_warm_ms'])}); CUDA events "
+            f"{t['events_ms']:.4f} (old {_ms(t['old_events_ms'])})")
+    g = recs["ssd_grad"]
+    log("[summary] gradient rules, ms per call | library | bound")
+    log(f"[summary] ssd_scan (plain recompute) {g['shape']}: {g['ms']:.4f}")
+    for t in recs["flash_grad"]:
+        log(f"[summary] flash_attention (plain recompute) {t['shape']}: {t['ms']:.4f} | "
+            f"SDPA backward {t['library_ms']:.4f} | {t['bound_ms']:.4f} {t['bound_by']}, "
+            f"{t['bound_ms'] / t['ms']:.1%} of bound")
+    for t in recs["lru_grad"]:
+        log(f"[summary] lru_scan (reversed scan) {t['shape']}: {t['ms']:.4f} (autograd "
+            f"through the plain scan {t['plain_ms']:.4f}) | none | {t['bound_ms']:.4f} "
+            f"{t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of bound")
+    for arch, r in serves.items():
         log(f"[summary] {arch} serving: {r['tokens_s']:.2f} tokens/s, prefill "
             f"{r['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} ms per step, peak "
             f"{r['peak_gib']:.3f} GiB, device idle {r['idle']:.1%}, flash "
             f"{r['flash_ms']:.3f} and RG-LRU scan {r['lru_ms']:.3f} of {r['busy_ms']:.3f} "
-            f"kernel ms; launches {r['launches']}")
-    log(f"[summary] mamba2-130m training: {train['step_ms']:.3f} ms/step mean, "
-        f"{train['median_ms']:.3f} median, "
-        f"{train['tokens_s']:.1f} tokens/s, peak {train['peak_gib']:.3f} GiB, losses {train['losses'][0]:.6f} .. {train['losses'][-1]:.6f}; profiled "
-        f"step {train['busy_ms']:.3f} kernel ms, SSD forward {train['ssd_ms']:.3f} ms, "
-        f"gradient rule {train['rule_ms']:.3f} ms, device idle {train['idle']:.1%}; "
-        f"launches {train['launches']}")
+            f"kernel ms")
+    for t in trains:
+        log(f"[summary] {t['arch']} training: {t['step_ms']:.3f} ms/step mean, "
+            f"{t['median_ms']:.3f} median, {t['tokens_s']:.1f} tokens/s, peak "
+            f"{t['peak_gib']:.3f} GiB, losses {t['losses'][0]:.6f} .. {t['losses'][-1]:.6f}; "
+            f"profiled step {t['busy_ms']:.3f} kernel ms ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in t["shares"].items())
+            + f"), device idle {t['idle']:.1%}")
 
 
 def main() -> int:
@@ -1216,30 +1531,31 @@ def main() -> int:
     recs = phase_kernels(dev, built["old"])
     log(f"[time] kernels checked at {time.perf_counter() - T_START:.1f} s")
     phase_model(dev)
-    granite = serve_and_profile(dev, "granite-8b", max_len=1024, prompt_range=(100, 340))
-    rg = serve_and_profile(dev, "recurrentgemma-2b", max_len=4096,
-                           prompt_range=(100, 2500))
-    train = phase_train(dev)
-    phase_train_profile(dev, train)
-    log(f"[time] mamba2-130m trained and profiled at {time.perf_counter() - T_START:.1f} s")
-    info = built["info"]
+    serves = {"granite-8b": serve_and_profile(dev, "granite-8b", max_len=1024,
+                                              prompt_range=(100, 340)),
+              "recurrentgemma-2b": serve_and_profile(dev, "recurrentgemma-2b", max_len=4096,
+                                                     prompt_range=(100, 2500))}
+    trains = [train_and_profile(dev, arch) for arch in TRAIN_RUNS]
+
+    def paths(kernel):
+        runs = [(f"{arch} serving", r) for arch, r in serves.items()]
+        runs += [(f"{t['arch']} training", t) for t in trains]
+        return {name: r["launches"][kernel] for name, r in runs if r["launches"][kernel]}
+
     kernels = [
         record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention/kernel.py:79",
-               granite["launches"]["flash_attention"] + rg["launches"]["flash_attention"],
-               recs["flash"][(340, 128)], info["flash_attention"],
-               launches_by_path={"granite-8b": granite["launches"]["flash_attention"],
-                                 "recurrentgemma-2b": rg["launches"]["flash_attention"]},
-               timings=list(recs["flash"].values())),
+               "src/repro/kernels/flash_attention/kernel.py:79", recs["flash"][(340, 128)],
+               paths("flash_attention"), timings=list(recs["flash"].values()),
+               gradient_rule=recs["flash_grad"]),
         record("lru_scan", "src/repro_torch/csrc/lru_scan.cu",
-               "src/repro/kernels/rglru/kernel.py:49", rg["launches"]["lru_scan"],
-               recs["lru"][2500], info["lru_scan"], timings=list(recs["lru"].values())),
+               "src/repro/kernels/rglru/kernel.py:49", recs["lru"][2500], paths("lru_scan"),
+               timings=list(recs["lru"].values()), gradient_rule=recs["lru_grad"]),
         record("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
-               "src/repro/kernels/ssd/kernel.py:75", train["launches"]["ssd_scan"],
-               recs["ssd"], info["ssd_scan"], flops=recs["ssd"]["flops"],
-               bytes=recs["ssd"]["bytes"], gradient_rule=recs["ssd_grad"]),
+               "src/repro/kernels/ssd/kernel.py:75", recs["ssd"], paths("ssd_scan"),
+               flops=recs["ssd"]["flops"], bytes=recs["ssd"]["bytes"],
+               gradient_rule=recs["ssd_grad"]),
     ]
-    summary(built, recs, granite, rg, train)
+    summary(built, recs, serves, trains)
     log(f"[time] total {time.perf_counter() - T_START:.1f} s")
     log(nvidia_smi("name,power.limit"))
     log(json.dumps({"kernels": kernels}))

@@ -7,11 +7,11 @@ family the port runs are listed; the others wait for their ROADMAP item.
 
 from __future__ import annotations
 
-from repro_torch.configs import granite_8b, mamba2_130m, recurrentgemma_2b
+from repro_torch.configs import granite_8b, mamba2_130m, recurrentgemma_2b, tiny
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {"granite-8b": granite_8b, "mamba2-130m": mamba2_130m,
-            "recurrentgemma-2b": recurrentgemma_2b}
+            "recurrentgemma-2b": recurrentgemma_2b, "tiny": tiny}
 ARCHS = sorted(_MODULES)
 
 

@@ -1,5 +1,5 @@
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_vjp
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["flash_attention", "flash_attention_kernel", "attention_ref"]
+__all__ = ["flash_attention", "flash_attention_kernel", "flash_vjp", "attention_ref"]

@@ -1,16 +1,30 @@
 """Training launcher — the end-to-end entry point behind ``--arch <id>``.
 
+On the card, at full published width (bf16 activations over f32 master
+params and moments for mamba2-130m and recurrentgemma-2b; tiny is f32):
+
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
         --full --steps 6 --global-batch 8 --seq-len 2048
-    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tiny \\
+        --full --steps 6 --global-batch 8 --seq-len 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
+        --full --steps 6 --global-batch 4 --seq-len 2048 --microbatches 4
 
-Runs on the CUDA card by default, in the config's dtype (bf16 activations
-for mamba2-130m) over f32 master params and moments; ``--full`` is the
-published width, otherwise the smoke width. ``--device cpu`` trains on the
-CPU in float32, as the reference launcher does off the accelerator. With no
-card and no ``--device cpu`` it raises. Re-running with the same
-``--ckpt-dir`` resumes from the latest step. Only the ssm family trains so
-far (ROADMAP.md Queue 1 item 10 brings the dense and hybrid families).
+On the CPU, at smoke width in float32, as the reference launcher runs off
+the accelerator:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tiny --device cpu \\
+        --steps 6 --global-batch 4 --seq-len 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
+        --device cpu --steps 6 --global-batch 4 --seq-len 64
+
+Runs on the CUDA card by default; with no card and no ``--device cpu`` it
+raises. ``--full`` is the published width, otherwise the smoke width.
+``--microbatches`` splits each global batch and averages the gradients.
+Re-running with the same ``--ckpt-dir`` resumes from the latest step. The
+dense, hybrid and ssm families train; the others raise, naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -32,7 +46,8 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
-    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="split each global batch into this many; gradients averaged")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--lr", type=float, default=3e-4)

@@ -1,6 +1,7 @@
 """Model assembly: param shapes, the full-sequence forward and loss
-(training; the ssm family), and the prefill and decode steps (serving; the
-dense and hybrid families). Port of ``repro.models.model``.
+(training; the dense, hybrid and ssm families), and the prefill and decode
+steps (serving; the dense and hybrid families). Port of
+``repro.models.model``.
 
 Parameters and caches keep the reference's layouts, so JAX trees map one to
 one (see :mod:`repro_torch.interop`). When every layer has one kind (and

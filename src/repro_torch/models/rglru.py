@@ -10,7 +10,8 @@ and an output projection. The recurrence
 
 keeps |h| bounded; the decode state is one (B, W) vector in f32 plus a conv
 tail. The casts sit where the reference puts them, so the two round alike.
-The full-sequence prompt pass is ``transformer._rglru_prefill``.
+The full-sequence mixer (:func:`rglru_apply`, training) and the prompt pass
+(``transformer._rglru_prefill``, serving) share one body, :func:`rglru_seq`.
 """
 
 from __future__ import annotations
@@ -18,10 +19,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rglru import lru_decode_step_ref
+from repro_torch.kernels.rglru import lru_decode_step_ref, lru_scan
 from repro_torch.models.layers import ParamSpec
 
-__all__ = ["rglru_specs", "rglru_decode", "rglru_cache_shapes", "gelu"]
+__all__ = ["rglru_specs", "rglru_seq", "rglru_apply", "rglru_decode",
+           "rglru_cache_shapes", "gelu"]
 
 _C = 8.0  # Griffin's fixed decay sharpness
 
@@ -61,6 +63,23 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     cw, S = w.shape[0], u.shape[1]
     pad = F.pad(u, (0, 0, cw - 1, 0))
     return sum(pad[:, i:i + S, :] * w[i] for i in range(cw)) + b
+
+
+def rglru_seq(p: dict, x: torch.Tensor):
+    """The recurrent mixer over a full sequence. x: (B, S, D). Returns the
+    output (B, S, D), the pre-conv projection u (B, S, W), whose last rows
+    are the decode cache's conv tail, and the scan's h (B, S, W)."""
+    u = x @ p["in_x"].to(x.dtype)
+    uc = _causal_conv(u, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype))
+    a, b = _gates(p, uc)
+    h = lru_scan(a, b)
+    g = gelu(x @ p["in_gate"].to(x.dtype))
+    return (h * g) @ p["out_w"].to(x.dtype), u, h
+
+
+def rglru_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence recurrent mixer (training). x: (B, S, D) → (B, S, D)."""
+    return rglru_seq(p, x)[0]
 
 
 def rglru_cache_shapes(cfg, batch: int, dtype) -> dict:

@@ -3,16 +3,17 @@
 
 Layer kinds ported so far:
   attn        causal self-attention (full or sliding window per config) + FFN;
-              prefill and decode (serving)
-  local_attn  sliding-window attention (hybrid archs) + FFN; prefill and decode
-  rglru       RG-LRU recurrent mixer + FFN; prefill and decode
+              training forward, prefill and decode
+  local_attn  sliding-window attention (hybrid archs) + FFN; training
+              forward, prefill and decode
+  rglru       RG-LRU recurrent mixer + FFN; training forward, prefill and
+              decode
   ssm         Mamba-2 SSD mixer (no FFN — the mamba block subsumes it); the
-              full-sequence forward (training)
+              training forward
 
-The other kinds of the reference (enc_attn, cross), MoE / gelu MLPs, the
-training forward of attn/local_attn/rglru and the serving steps of ssm
-belong to ROADMAP items not done yet; asking for them raises
-``NotImplementedError`` naming the item.
+The other kinds of the reference (enc_attn, cross), MoE / gelu MLPs and the
+serving steps of ssm belong to ROADMAP items not done yet; asking for them
+raises ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rglru import lru_scan
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
@@ -33,7 +33,6 @@ _ROADMAP = {
     "vlm": "Queue 1 item 4 (vlm family)", "moe": "Queue 1 item 5 (moe family)",
     "audio": "Queue 1 item 6 (audio family)",
 }
-DENSE_HYBRID_TRAINING = "Queue 1 item 10 (dense and hybrid training)"
 MAMBA2_SERVING = "Queue 1 item 11 (mamba2 serving)"
 _KINDS = ("attn", "local_attn", "rglru", "ssm")
 
@@ -100,13 +99,15 @@ def _window_for(cfg, kind: str) -> int | None:
 # ------------------------------------------------------------------- apply
 def block_apply(p: dict, x: torch.Tensor, cfg, kind: str) -> torch.Tensor:
     """Train/eval full-sequence block (the reference's ``block_apply``, whose
-    aux loss is 0 for every ported kind). Only kind ``ssm`` is ported: the
-    flash attention and RG-LRU kernels have no autograd rule yet."""
-    if kind != "ssm":
-        raise _not_ported(f"the training forward of layer kind {kind!r}",
-                          DENSE_HYBRID_TRAINING)
+    aux loss is 0 for every ported kind)."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    return x + ssm_mod.ssm_apply(p, h, cfg)
+    if kind == "ssm":
+        return x + ssm_mod.ssm_apply(p, h, cfg)
+    if kind == "rglru":
+        x = x + rglru_mod.rglru_apply(p, h, cfg)
+    else:
+        x = x + attn.attn_apply(p, h, cfg, window=_window_for(cfg, kind))[0]
+    return _ffn(p, x, cfg)
 
 
 # ------------------------------------------------------------------ prefill
@@ -142,19 +143,14 @@ def _kv_to_cache(k: torch.Tensor, v: torch.Tensor, slots: int) -> dict:
 
 
 def _rglru_prefill(p: dict, h: torch.Tensor, cfg):
-    """Recurrent mixer over the prompt. The conv cache is the last
-    conv_width - 1 rows of the pre-conv projection (left-padded with zeros
-    for a shorter prompt); the state cache is the last h, rounded to the
-    compute dtype by the scan and then widened to f32, as the reference
-    does."""
-    u = h @ p["in_x"].to(h.dtype)
+    """Recurrent mixer over the prompt (:func:`rglru_mod.rglru_seq`, the
+    training mixer's body). The conv cache is the last conv_width - 1 rows
+    of the pre-conv projection (left-padded with zeros for a shorter
+    prompt); the state cache is the last h, rounded to the compute dtype by
+    the scan and then widened to f32, as the reference does."""
+    out, u, hseq = rglru_mod.rglru_seq(p, h)
     S, tail_len = u.shape[1], cfg.conv_width - 1
     tail = u[:, -tail_len:, :] if S >= tail_len else F.pad(u, (0, 0, tail_len - S, 0))
-    uc = rglru_mod._causal_conv(u, p["conv_w"].to(h.dtype), p["conv_b"].to(h.dtype))
-    a, b = rglru_mod._gates(p, uc)
-    hseq = lru_scan(a, b)
-    g = rglru_mod.gelu(h @ p["in_gate"].to(h.dtype))
-    out = (hseq * g) @ p["out_w"].to(h.dtype)
     return out, {"conv": tail, "h": hseq[:, -1].float()}
 
 

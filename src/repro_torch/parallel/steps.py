@@ -50,12 +50,12 @@ def make_train_step(cfg, *, opt: OptConfig | None = None, microbatches: int = 1)
     ``grad_norm`` and ``lr`` as 0-d f32 tensors on the device: reading them
     is the only synchronisation, and the caller chooses when.
 
-    Only the ssm family trains: the flash attention and RG-LRU kernels have
-    no autograd rule yet (ROADMAP.md Queue 1 item 10)."""
-    kinds = set(tfm.layer_kinds(cfg))
-    if kinds != {"ssm"}:
-        raise tfm._not_ported(f"training the {cfg.family} family (layer kinds "
-                              f"{sorted(kinds)})", tfm.DENSE_HYBRID_TRAINING)
+    The dense, hybrid and ssm families train; on the card each kernel's
+    autograd Function gives its gradient (flash attention and the SSD scan
+    by a plain recompute, the RG-LRU scan by a reversed scan through its
+    kernel). A family not ported yet raises from ``layer_kinds``, naming its
+    ROADMAP item."""
+    tfm.layer_kinds(cfg)
     opt = opt or OptConfig()
 
     def train_step(state, batch):
@@ -63,18 +63,19 @@ def make_train_step(cfg, *, opt: OptConfig | None = None, microbatches: int = 1)
         leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
+            t.grad = None
         mbs = [batch] if microbatches == 1 else \
             [{k: v[i] for k, v in batch.items()} for i in range(microbatches)]
-        loss, grads = None, None
+        loss = None
         for mb in mbs:
+            # backward sums each microbatch's gradient into the leaf's .grad
+            # as it is made, so one set of gradients is held, not two
             l = M.loss_fn(params, cfg, mb)
-            g = torch.autograd.grad(l, leaves)
-            if grads is None:
-                loss, grads = l.detach(), [x.float() for x in g]
-            else:
-                loss = loss + l.detach()
-                for acc, x in zip(grads, g):
-                    acc.add_(x)
+            l.backward()
+            loss = l.detach() if loss is None else loss + l.detach()
+        grads = [t.grad.float() for t in leaves]
+        for t in leaves:
+            t.grad = None
         if microbatches > 1:
             loss = loss * (1.0 / microbatches)
             for acc in grads:

@@ -1,8 +1,10 @@
 """Port's flash attention against the JAX package: the port's plain version
 (the CPU path of ``repro_torch.kernels.flash_attention.flash_attention``)
 vs the reference Pallas kernel in interpret mode and vs ``attention_ref``,
-over the grid of tests/test_kernels.py. The CUDA kernel itself is held
-against the plain version on the card by chip_smoke.py (phase 3)."""
+over the grid of tests/test_kernels.py; the kernel's gradient rule
+(``flash_vjp``) vs ``jax.vjp`` of the reference ``attention_ref``, and the
+autograd Function's wiring. The CUDA kernel itself is held against the
+plain version on the card by chip_smoke.py (phase 3)."""
 
 import math
 
@@ -12,13 +14,15 @@ import pytest
 pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    attention_ref, flash_attention, flash_attention_kernel)
+    attention_ref, flash_attention, flash_attention_kernel, flash_vjp)
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 
 # tests/test_kernels.py TOL for float32 (summation order differs).
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -75,6 +79,60 @@ def test_kernel_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 2, 1, 16, seed=0))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_kernel(q, k, v)
+
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)    # float32 on both sides; sum order differs
+
+
+@pytest.mark.parametrize("B,S,H,K,D,causal,window", [
+    (2, 77, 4, 4, 16, True, None),       # G = 1, D = 16, ragged
+    (1, 128, 8, 2, 64, True, None),      # G = 4, D = 64 (tiny's head_dim)
+    (1, 96, 4, 1, 16, True, 32),         # G = 4, window (recurrentgemma-smoke heads)
+    (2, 64, 4, 2, 64, True, 16),         # G = 2, D = 64, window
+    (1, 80, 4, 4, 64, True, 24),         # G = 1, window
+    (1, 50, 4, 2, 16, False, None),      # not causal
+])
+def test_flash_vjp_matches_jax_grad(B, S, H, K, D, causal, window):
+    """flash_vjp (the kernel's backward) against jax.vjp of the reference's
+    attention_ref for q, k and v, with the same masks and cotangent."""
+    q, k, v = _inputs(B, S, S, H, K, D, seed=S + D)
+    g = np.random.default_rng(S).standard_normal((B, S, H, D)).astype(np.float32)
+    ref = jax.jit(lambda q, k, v, g: jax.vjp(
+        lambda *x: jax_ref(*x, causal=causal, window=window), q, k, v)[1](g))(
+        *(jnp.asarray(x) for x in (q, k, v, g)))
+    ours = flash_vjp(torch.from_numpy(g), *(torch.from_numpy(x) for x in (q, k, v)),
+                     causal=causal, window=window)
+    for name, o, r in zip(("q", "k", "v"), ours, ref):
+        assert o.shape == r.shape and o.dtype == torch.float32, name
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **GRAD_TOL, err_msg=name)
+
+
+def test_flash_function_runs_kernel_forward_and_rule_backward(monkeypatch):
+    """The Function's wiring on the CPU, with the kernel stood in for by the
+    plain version: the forward calls the kernel once with the masks, the
+    backward calls flash_vjp with them and gives autograd's gradients
+    through attention_ref."""
+    calls = []
+
+    def fake_kernel(q, k, v, *, causal, window):
+        calls.append(("kernel", causal, window))
+        return attention_ref(q, k, v, causal=causal, window=window)
+
+    def counted_vjp(*a, causal, window):
+        calls.append(("vjp", causal, window))
+        return flash_vjp(*a, causal=causal, window=window)
+
+    monkeypatch.setattr(flash_ops, "flash_attention_kernel", fake_kernel)
+    monkeypatch.setattr(flash_ops, "flash_vjp", counted_vjp)
+    q, k, v = (torch.from_numpy(x) for x in _inputs(2, 40, 40, 4, 2, 16, seed=5))
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    g = torch.randn(2, 40, 4, 16, generator=torch.Generator().manual_seed(0))
+    flash_ops._FlashKernel.apply(*a, True, 8).backward(g)
+    attention_ref(*b, causal=True, window=8).backward(g)
+    assert calls == [("kernel", True, 8), ("vjp", True, 8)]
+    for ta, tb in zip(a, b):
+        torch.testing.assert_close(ta.grad, tb.grad, rtol=1e-6, atol=1e-6)
 
 
 def _flash_tc_emulation(q, k, v, *, causal, window, bk, round_p=True):

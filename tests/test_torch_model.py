@@ -2,7 +2,9 @@
 with ``repro_torch.interop``): parameter tree shapes and count, prefill
 logits and cache, decode steps at mixed per-row positions, the ring roll of
 a prompt longer than the cache, and the port's own seeded init statistics;
-and the paths not ported yet, which raise naming their ROADMAP item."""
+the first train step of the dense and hybrid families against the JAX train
+step; and the paths not ported yet, which raise naming their ROADMAP
+item."""
 
 import numpy as np
 import pytest
@@ -13,10 +15,14 @@ pytest.importorskip("jax")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from jax.sharding import Mesh  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models.layers import ParamSpec as JSpec  # noqa: E402
+from repro.parallel import sharding as shd  # noqa: E402
+from repro.parallel.steps import init_train_state as jax_init_state  # noqa: E402
+from repro.parallel.steps import make_train_step as jax_make_train_step  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -160,6 +166,28 @@ def test_mamba2_serving_raises_not_implemented():
 
 @pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b"])
 def test_make_train_step_refuses_dense_and_hybrid(arch):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 10 \\(dense and hybrid training\\)"):
-        make_train_step(tconfigs.get_smoke(arch))
+    """The name dates from before ROADMAP.md Queue 1 item 10, when
+    make_train_step refused these families. Now it is that item's check:
+    the port's step trains them, and its first step's loss and grad_norm
+    match the JAX train step's on carried weights and the same tokens."""
+    jcfg = jconfigs.get_smoke(arch).replace(dtype="float32")
+    tcfg = tconfigs.get_smoke(arch).replace(dtype="float32")
+    jstate = jax_init_state(jcfg, jax.random.PRNGKey(0))
+    tstate = interop.to_torch(jstate)
+    tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 40)).astype(np.int32)
+    mesh = Mesh(np.array(jax.devices()).reshape(1, 1), ("data", "model"))
+    _, jm = jax_make_train_step(jcfg, mesh, shd.make_rules(multi_pod=False))(
+        jstate, {"tokens": jnp.asarray(tokens)})
+    tstate, tm = make_train_step(tcfg)(tstate, {"tokens": torch.from_numpy(tokens)})
+    for key in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(tm[key].item(), float(jm[key]), **TOL, err_msg=key)
+    assert int(tstate["step"]) == 1
+
+
+@pytest.mark.parametrize("family,item", [("moe", "item 5 \\(moe family\\)"),
+                                         ("vlm", "item 4 \\(vlm family\\)"),
+                                         ("audio", "item 6 \\(audio family\\)")])
+def test_make_train_step_refuses_unported_families(family, item):
+    cfg = tconfigs.get_smoke("granite-8b").replace(family=family)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
+        make_train_step(cfg)

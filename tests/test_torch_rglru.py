@@ -2,10 +2,12 @@
 carried weights: the plain scan (the CPU path of
 ``repro_torch.kernels.rglru.lru_scan``) vs the reference Pallas kernel in
 interpret mode and vs ``lru_scan_ref``; an emulation of the CUDA kernel's
-chunked arithmetic vs both; the decode step; the recurrent mixer's prefill
-and decode; and recurrentgemma-smoke's prefill and decode steps with every
-cache leaf. The CUDA kernel itself is held against the plain version on the
-card by chip_smoke.py (phase 3)."""
+chunked arithmetic vs both; the scan's gradient rule (a reversed scan) vs
+``jax.vjp`` of the reference scan, and the autograd Function's wiring; the
+decode step; the recurrent mixer's training forward, prefill and decode;
+and recurrentgemma-smoke's prefill and decode steps with every cache leaf.
+The CUDA kernel itself is held against the plain version on the card by
+chip_smoke.py (phase 3)."""
 
 import math
 
@@ -29,7 +31,8 @@ from repro.models import transformer as JT  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.kernels.rglru import (  # noqa: E402
-    lru_decode_step_ref, lru_scan, lru_scan_kernel, lru_scan_ref)
+    lru_decode_step_ref, lru_scan, lru_scan_kernel, lru_scan_ref, lru_scan_vjp)
+from repro_torch.kernels.rglru import ops as lru_ops  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import rglru as TR  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -178,6 +181,61 @@ def test_kernel_refuses_cpu_tensors():
         lru_scan_kernel(a, b)
 
 
+# ------------------------------------------------------------ gradient rule
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)    # float32 on both sides; sum order differs
+
+
+def _rule_inputs(S, seed):
+    """Rows of three kinds: a in (0, 1) from sigmoid draws, a = 1 (h is the
+    prefix sum of b, λ the suffix sum of g) and a = 0 (h = b, λ = g)."""
+    a, b = _coeffs(3, S, 24, seed)
+    a[1], a[2] = 1.0, 0.0
+    g = np.random.default_rng(seed + 1).standard_normal(a.shape).astype(np.float32)
+    return a, b, g
+
+
+@pytest.mark.parametrize("S", [1, 2, 77, 300])
+def test_reversed_scan_rule_matches_jax_grad(S):
+    """lru_scan_vjp (a reversed scan through lru_scan, the plain walk on the
+    CPU) against jax.vjp of the reference's associative scan."""
+    a, b, g = _rule_inputs(S, seed=S)
+    jda, jdb = jax.jit(lambda a, b, g: jax.vjp(jax_scan_ref, a, b)[1](g))(
+        *(jnp.asarray(x) for x in (a, b, g)))
+    ta, tb, tg = (torch.from_numpy(x) for x in (a, b, g))
+    da, db = lru_scan_vjp(tg, ta, lru_scan_ref(ta, tb))
+    assert da.dtype == db.dtype == torch.float32 and da.shape == db.shape == (3, S, 24)
+    np.testing.assert_allclose(db.numpy(), np.asarray(jdb), **GRAD_TOL, err_msg="db")
+    np.testing.assert_allclose(da.numpy(), np.asarray(jda), **GRAD_TOL, err_msg="da")
+
+
+def test_scan_function_runs_kernel_forward_and_rule_backward(monkeypatch):
+    """The Function's wiring on the CPU, with the kernel stood in for by the
+    plain version: the forward calls the kernel once, the backward one more
+    scan (the reversed one, through lru_scan), and the gradients are those
+    autograd gives through lru_scan_ref."""
+    calls = {"kernel": 0, "scan": 0}
+    scan = lru_ops.lru_scan
+
+    def fake_kernel(a, b):
+        calls["kernel"] += 1
+        return lru_scan_ref(a, b)
+
+    def counted_scan(a, b):
+        calls["scan"] += 1
+        return scan(a, b)
+
+    monkeypatch.setattr(lru_ops, "lru_scan_kernel", fake_kernel)
+    monkeypatch.setattr(lru_ops, "lru_scan", counted_scan)
+    a, b, g = (torch.from_numpy(x) for x in _rule_inputs(45, seed=9))
+    x = [t.clone().requires_grad_() for t in (a, b)]
+    y = [t.clone().requires_grad_() for t in (a, b)]
+    lru_ops._LRUScanKernel.apply(*x).backward(g)
+    lru_scan_ref(*y).backward(g)
+    assert calls == {"kernel": 1, "scan": 1}
+    for tx, ty in zip(x, y):
+        torch.testing.assert_close(tx.grad, ty.grad, rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------------------------------- model
 @pytest.fixture(scope="module")
 def smoke():
@@ -242,6 +300,28 @@ def test_rglru_prefill_and_decode_match(smoke, S):
             tout = TR.rglru_decode(tp, torch.from_numpy(xt), tcache, tcfg)
         _close(tout, jout)
         _close_tree(tcache, jcache)
+
+
+def test_rglru_apply_matches_jax(smoke):
+    """The training mixer, and its gradients with respect to the layer's
+    parameters and input, against the reference on carried weights."""
+    jcfg, tcfg, jparams, tparams = smoke
+    names = TR.rglru_specs(tcfg)
+    jp = {k: jparams["layers"]["layer_0"][k] for k in names}
+    tp = {k: tparams["layers"]["layer_0"][k] for k in names}
+    x = np.random.default_rng(4).standard_normal((2, 37, jcfg.d_model)).astype(np.float32)
+    jout = jax.jit(JR.rglru_apply, static_argnums=2)(jp, jnp.asarray(x), jcfg)
+    jgrad = jax.jit(jax.grad(lambda p, x: JR.rglru_apply(p, x, jcfg).sum(), argnums=(0, 1)))(
+        jp, jnp.asarray(x))
+    tp = {k: t.clone().requires_grad_() for k, t in tp.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    tout = TR.rglru_apply(tp, tx, tcfg)
+    _close(tout.detach(), jout)
+    tout.sum().backward()
+    _close(tx.grad, jgrad[1])
+    assert set(tp) == set(jgrad[0])
+    for k in tp:
+        _close(tp[k].grad, jgrad[0][k])
 
 
 def test_prefill_and_mixed_position_decode(smoke):
