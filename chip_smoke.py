@@ -38,19 +38,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                 f64 autograd in bf16 (bf16 errors over the gradient's scale),
                 and times each rule beside its bound (flash's in f32 and bf16,
                 beside SDPA's backward);
-  4. model    — granite-smoke and recurrentgemma-smoke in float32 on the card
-                against the same seeded weights on the CPU: prefill, decode
-                and every cache leaf, with the kernel launches per prefill;
+  4. model    — granite-smoke, recurrentgemma-smoke and mamba2-smoke in
+                float32 on the card against the same seeded weights on the
+                CPU: prefill, decode and every cache leaf, with the kernel
+                launches per prefill (none for mamba2: its prefill runs the
+                plain scan, as the reference's does);
                 mamba2-smoke, tiny-smoke, granite-smoke and
                 recurrentgemma-smoke training in float32, card against CPU:
                 the loss and every gradient leaf of one step, then a 3-step
                 (mamba2) or 2-step loss and grad_norm curve, with the kernel
                 launches per step;
   5. serving  — granite-8b at full width (36 x 4096, bf16), then
-                recurrentgemma-2b at full width (26 layers, 2560 wide, bf16),
-                weights made on the card from a seed, each serving 8 requests
-                through ServeEngine; the kernel launch counts are set to 0
-                just before each run and read just after it;
+                recurrentgemma-2b (26 layers, 2560 wide, bf16), then
+                mamba2-130m (24 x 768, bf16), weights made on the card from
+                a seed, each serving 8 requests through ServeEngine; the
+                kernel launch counts are set to 0 just before each run and
+                read just after it;
   6. profile  — after each serving run, the same 8 requests served again under
                 torch.profiler: host and device time of the prefill and decode
                 spans, the device's idle share, the port kernels' time and the
@@ -66,11 +69,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                 half the logits' variance, the last below the first),
                 grad_norm, ms/step, tokens/s, peak memory; then one more step
                 of each under torch.profiler: kernel time, the port kernels'
-                and their gradient rules' shares, the device's idle share.
+                and their gradient rules' shares, the device's idle share;
+  8. runner   — the port's ClusterRunner (the OAR bridge) runs tiny at full
+                width (smoke: false, 8 x 2048 tokens) as jobs, with an
+                in-memory sqlite jobs table and a recorder standing in for
+                OAR's database and executor: a best-effort job is preempted
+                (toCancel=1) after its first checkpoint and must yield
+                within one step, with a checkpoint and no completion, while a
+                regular job starts at once and trains to its end beside it;
+                a clone of the best-effort job resumes from the checkpoint
+                and ends where an uninterrupted run of the same spec ends;
+                flash launches matched to 8 per step over all the jobs.
 A summary block follows (card, build time, each library's registers,
 spills, shared memory and tensor-core and cp.async instruction counts, the
 kernel and rule times beside their bounds, the serving and training
-numbers). The whole output stays under 20,000 bytes.
+numbers, one line per family). The whole output stays under 20,000
+bytes.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel record. Imports nothing of JAX or of the JAX package.
 """
@@ -83,9 +97,12 @@ import gc
 import json
 import math
 import re
+import sqlite3
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -95,7 +112,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -108,12 +126,14 @@ from repro_torch.kernels.rglru import lru_scan_kernel, lru_scan_ref  # noqa: E40
 from repro_torch.kernels.ssd import kernel as ssd_module  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ssd_kernel, ssd_ref, ssd_vjp  # noqa: E402
+from repro_torch.launch.cluster import ClusterRunner  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.parallel.steps import init_train_state, make_train_step  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
-from repro_torch.train.loop import train_loop  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train.loop import TrainResult, train_loop  # noqa: E402
 from repro_torch.train.optimizer import OptConfig  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -267,7 +287,16 @@ def read_counts() -> dict:
 NO_LAUNCHES = {"flash_attention": 0, "lru_scan": 0, "ssd_scan": 0}
 
 
+def counts_str(counts: dict) -> str:
+    """Launch counts on one short field: the kernels launched, or none."""
+    return ", ".join(f"{k} {n}" for k, n in counts.items() if n) or "none"
+
+
 def launches_per_prefill(cfg) -> dict:
+    """One flash launch per attention layer and one scan per rglru layer. No
+    SSD launch: the ssm prefill runs the plain scan, which also returns the
+    final state, as the reference's prefill does (the kernel returns y
+    only); the SSD kernel runs on the training path."""
     kinds = tfm.layer_kinds(cfg)
     return {"flash_attention": sum(k in ("attn", "local_attn") for k in kinds),
             "lru_scan": kinds.count("rglru"), "ssd_scan": 0}
@@ -732,6 +761,18 @@ def ssd_counts(B, S, H, P, N, chunk, itemsize) -> tuple[float, float]:
     return float(flops), float(nbytes)
 
 
+def ssd_grad_counts(B, S, H, P, N, chunk, itemsize) -> tuple[float, float]:
+    """(FLOPs, bytes) of the SSD gradient rule, counted as ssd_counts counts
+    the forward: ssd_vjp recomputes the forward's products, and the gradient
+    of each product of two operands is two products of its size, so three
+    times the forward's operations. Bytes: x, B, C, dt, A and the cotangent
+    read once, their five gradients written once, each in its input's
+    dtype (the cotangent in x's)."""
+    flops, _ = ssd_counts(B, S, H, P, N, chunk, itemsize)
+    nbytes = 2 * ((B * S * H * P + 2 * B * S * N) * itemsize + (B * S * H + H) * 4)
+    return 3 * flops, float(nbytes + B * S * H * P * itemsize)
+
+
 def ssd_inputs(gen, dev, B, S, H, P, N, dt):
     """Reference-test statistics: x, B, C ~ N(0, 1) in ``dt``; dt =
     softplus(N(0, 1)) and A = -exp(N(0, 1)) in f32."""
@@ -803,7 +844,10 @@ def check_ssd_grad(gen, dev) -> dict:
         del a, b
     check.report()
     ms = time_ms(lambda: ssd_vjp(g, *inputs, chunk=chunk), iters=5)
-    return dict(shape=name, max_abs_err=check.errs[torch.bfloat16], ms=ms)
+    flops, nbytes = ssd_grad_counts(B, S, H, P, N, chunk, 2)
+    bound_ms, bound_by = bound(flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3)
+    return dict(shape=name, max_abs_err=check.errs[torch.bfloat16], ms=ms,
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
 
 
 def rel_err(x, ref) -> float:
@@ -1030,7 +1074,7 @@ def model_check(dev, arch: str, B: int, S: int, pos: list[int], max_len: int) ->
         f"pos {pos}: prefill logits err {errs['prefill logits']:.3e}, decode logits "
         f"err {errs['decode logits']:.3e}, {len(errs) - 2} cache leaves, worst "
         f"{worst} {errs[worst]:.3e} (atol=rtol=1e-3); launches per prefill "
-        f"{launches}, expected {expect}")
+        f"{counts_str(launches)} (expected {counts_str(expect)})")
     if not all(torch.allclose(card[k], cpu[k], **MODEL_TOL) for k in cpu):
         fail(f"{cfg.name} on the card disagrees with the CPU")
     if counts["cpu"] != NO_LAUNCHES:
@@ -1078,7 +1122,7 @@ def train_check(dev, arch: str, steps: int) -> None:
         f"{cpu_one['loss'].item():.6f} err {errs['loss']:.3e}, {len(errs) - 1} grad "
         f"leaves, worst {worst} {errs[worst]:.3e}; {steps} steps' loss and grad_norm "
         f"worst err {(card_curve - cpu_curve).abs().max().item():.3e} (atol=rtol=1e-3); "
-        f"launches per step {counts[str(dev)][0]}")
+        f"launches per step {counts_str(counts[str(dev)][0])}")
     if not all(torch.allclose(card_one[k], cpu_one[k], **MODEL_TOL) for k in cpu_one):
         fail(f"{cfg.name} training on the card disagrees with the CPU")
     if not torch.allclose(card_curve, cpu_curve, **MODEL_TOL):
@@ -1093,6 +1137,9 @@ def phase_model(dev) -> None:
     model_check(dev, "granite-8b", B=2, S=37, pos=[37, 30], max_len=64)
     # longer than the smoke window of 32: the local-attention ring rolls
     model_check(dev, "recurrentgemma-2b", B=2, S=45, pos=[45, 33], max_len=64)
+    # ragged against mamba2-smoke's chunk of 32: the plain scan pads, carries
+    # its state over two chunks and returns it
+    model_check(dev, "mamba2-130m", B=2, S=45, pos=[45, 40], max_len=64)
     train_check(dev, "mamba2-130m", steps=3)
     for arch in ("tiny", "granite-8b", "recurrentgemma-2b"):
         train_check(dev, arch, steps=2)
@@ -1107,9 +1154,7 @@ def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) 
                            M.compute_dtype(cfg), dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for _, t in leaves(params))
-    log(f"[serve] {arch} {cfg.num_layers} x {cfg.d_model}, {n_params / 1e9:.3f} B "
-        f"params in {cfg.dtype}, made on the card in "
-        f"{time.perf_counter() - t0:.3f} s (set-up)")
+    setup_s = time.perf_counter() - t0
     engine = ServeEngine(cfg, params, max_batch=4, max_len=max_len, device=dev)
 
     stats = {"prefill_s": [], "decode_s": [], "finite": True}
@@ -1152,17 +1197,18 @@ def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) 
     tokens = sum(len(r.generated) for r in done)
     n_prefill, n_steps = len(stats["prefill_s"]), engine.steps_run - steps0
     peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] {arch}: {len(done)} requests, prompts "
-        f"{sorted(int(n) for n in lengths)}, max_new {[int(n) for n in max_new]}")
+    log(f"[serve] {arch} {cfg.num_layers} x {cfg.d_model}, {n_params / 1e9:.3f} B "
+        f"{cfg.dtype} params made on the card in {setup_s:.3f} s (set-up); {len(done)} "
+        f"requests, prompts {sorted(int(n) for n in lengths)}, max_new "
+        f"{[int(n) for n in max_new]}")
     log(f"[serve] {arch}: wall {wall:.4f} s: {n_prefill} prefills, mean "
         f"{1e3 * statistics.mean(stats['prefill_s']):.3f} ms per request; "
         f"{n_steps} decode steps (batch 4), mean "
         f"{1e3 * statistics.mean(stats['decode_s']):.3f} ms, median "
         f"{1e3 * statistics.median(stats['decode_s']):.3f} ms per step; "
         f"{tokens} tokens, {tokens / wall:.2f} tokens/s; peak memory "
-        f"{peak / 2**30:.3f} GiB; launches {launches}")
-    log(f"[serve] card during run: "
-        f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+        f"{peak / 2**30:.3f} GiB; launches {counts_str(launches)}")
+    card = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     if not all(r.done for r in done):
         fail("not every request completed")
     if not all(1 <= len(r.generated) <= n for r, n in zip(done, max_new)):
@@ -1177,9 +1223,9 @@ def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) 
                               max_len)
     if int(torch.argmax(logits[0])) != done[0].generated[0]:
         fail("first token of request 0 differs from its single-request prefill")
-    return {"arch": arch, "launches": launches, "engine": engine, "prompts": prompts,
-            "max_new": max_new, "stats": stats, "wall_s": wall,
-            "tokens": tokens, "steps": n_steps, "peak_gib": peak / 2**30}
+    return {"arch": arch, "cfg": cfg, "launches": launches, "engine": engine,
+            "prompts": prompts, "max_new": max_new, "stats": stats, "wall_s": wall,
+            "tokens": tokens, "steps": n_steps, "peak_gib": peak / 2**30, "card": card}
 
 
 def top_kernels(kernels, busy_ms: float, n: int = 2) -> str:
@@ -1230,25 +1276,27 @@ def phase_profile(serve: dict) -> None:
                if e.device_type == DeviceType.CUDA and e.key not in spans]
     busy_us = sum(e.self_device_time_total for e in kernels)
     untraced_wall_us = serve["wall_s"] * 1e6
+    port_us = {name: sum(e.self_device_time_total for e in kernels if re.search(pat, e.key))
+               for name, pat in (("flash", r"flash_fwd\w*_kernel"), ("lru", LRU_KERNELS))}
     log(f"[profile] {arch}: {len(rids)} requests, {steps} decode steps: kernels busy "
         f"{busy_us / 1e3:.3f} ms; traced wall {wall_us / 1e3:.3f} ms (device idle "
         f"{1 - busy_us / wall_us:.1%}); untraced wall (phase 5) "
         f"{untraced_wall_us / 1e3:.3f} ms (device idle "
-        f"{1 - busy_us / untraced_wall_us:.1%})")
+        f"{1 - busy_us / untraced_wall_us:.1%}); port kernels: " + (", ".join(
+            f"{name} {us / 1e3:.3f} ms ({us / max(busy_us, 1):.1%})"
+            for name, us in port_us.items() if us) or "none launched"))
+    per_call = []
     for e in events:
         if e.key in spans and e.device_type == DeviceType.CPU:
             dev_us = e.device_time_total / e.count
-            log(f"[profile] {arch} {e.key}: {e.count} calls, per call: untraced "
-                f"(phase 5) {untraced_us[e.key] / 1e3:.3f} ms, traced host "
-                f"{e.cpu_time_total / e.count / 1e3:.3f} ms, kernels "
-                f"{dev_us / 1e3:.3f} ms; device idle share of an untraced call "
+            per_call.append(
+                f"{e.key[6:]} x{e.count} {untraced_us[e.key] / 1e3:.3f} / "
+                f"{e.cpu_time_total / e.count / 1e3:.3f} / {dev_us / 1e3:.3f}, "
                 f"{1 - dev_us / untraced_us[e.key]:.1%}")
-    port_us = {name: sum(e.self_device_time_total for e in kernels if re.search(pat, e.key))
-               for name, pat in (("flash", r"flash_fwd\w*_kernel"), ("lru", LRU_KERNELS))}
-    log(f"[profile] {arch} port kernels: flash attention {port_us['flash'] / 1e3:.3f} ms "
-        f"({port_us['flash'] / max(busy_us, 1):.1%}), RG-LRU scan "
-        f"{port_us['lru'] / 1e3:.3f} ms ({port_us['lru'] / max(busy_us, 1):.1%})")
-    log(f"[profile] {arch} top kernels: " + top_kernels(kernels, busy_us / 1e3))
+    log(f"[profile] {arch} per call, ms untraced (phase 5) / traced host / kernels, "
+        f"device idle share of an untraced call: " + "; ".join(per_call))
+    log(f"[profile] {arch} top kernels: " + top_kernels(kernels, busy_us / 1e3)
+        + f" [at {time.perf_counter() - T_START:.1f} s]")
     serve["profile"] = {"busy_ms": busy_us / 1e3, "idle": 1 - busy_us / untraced_wall_us,
                         "flash_ms": port_us["flash"] / 1e3, "lru_ms": port_us["lru"] / 1e3}
 
@@ -1260,13 +1308,12 @@ def serve_and_profile(dev, arch: str, **kw) -> dict:
     result = {"launches": serve["launches"], "tokens_s": serve["tokens"] / serve["wall_s"],
               "prefill_ms": 1e3 * statistics.mean(stats["prefill_s"]),
               "decode_ms": 1e3 * statistics.mean(stats["decode_s"]),
-              "peak_gib": serve["peak_gib"]}
+              "peak_gib": serve["peak_gib"], "card": serve["card"], "cfg": serve["cfg"]}
     phase_profile(serve)
     result.update(serve["profile"])
     serve.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[time] {arch} served and profiled at {time.perf_counter() - T_START:.1f} s")
     return result
 
 
@@ -1327,16 +1374,16 @@ def phase_train(dev, arch: str) -> dict:
     log(f"[train] {arch} {cfg.num_layers} x {cfg.d_model}, {cfg.param_count():,} params "
         f"(f32 masters and moments), activations {cfg.dtype}, {TRAIN['steps']} steps of "
         f"{run['global_batch']} x {TRAIN['seq_len']} tokens in {run['microbatches']} "
-        f"microbatch(es): wall {wall:.4f} s (params made on the card included); step 0 "
+        f"microbatch(es): wall {wall:.4f} s (init included); step 0 "
         f"{1e3 * step_s[0]:.3f} ms; steps 1-{len(steady)} mean "
         f"{1e3 * statistics.mean(steady):.3f} ms, median "
         f"{1e3 * statistics.median(steady):.3f} ms per step, "
         f"{tokens / statistics.mean(steady):.1f} tokens/s; peak memory "
-        f"{peak / 2**30:.3f} GiB; launches {launches}")
+        f"{peak / 2**30:.3f} GiB; launches {counts_str(launches)}")
     log(f"[train] {arch} losses {[round(x, 6) for x in losses]} (first expected "
         f"{first_loss_expected(cfg):.4f}), grad_norm "
-        f"{[round(m['grad_norm'], 4) for m in history]}, lr {history[-1]['lr']:.3e}; card "
-        f"during run: {nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+        f"{[round(m['grad_norm'], 4) for m in history]}, lr {history[-1]['lr']:.3e}")
+    card = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     if result.status != "done" or result.step != TRAIN["steps"] or len(losses) != TRAIN["steps"]:
         fail(f"{arch} training ended {result.status} at step {result.step}")
     if not all(math.isfinite(x) for x in losses):
@@ -1352,7 +1399,7 @@ def phase_train(dev, arch: str) -> dict:
             "step_ms": statistics.mean(steady) * 1e3,
             "median_ms": statistics.median(steady) * 1e3,
             "tokens_s": tokens / statistics.mean(steady), "peak_gib": peak / 2**30,
-            "losses": losses}
+            "losses": losses, "card": card}
 
 
 # Gradient rules, each timed on the device under a label for the profiled step.
@@ -1415,7 +1462,8 @@ def phase_train_profile(dev, train: dict) -> None:
         f"(device idle {1 - busy_ms / wall_ms:.1%}); untraced mean step (phase 7) "
         f"{train['step_ms']:.3f} ms (device idle {1 - busy_ms / train['step_ms']:.1%}); "
         + ", ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%})" for k, v in used.items()))
-    log(f"[profile] {arch} train top kernels: " + top_kernels(kernels, busy_ms))
+    log(f"[profile] {arch} train top kernels: " + top_kernels(kernels, busy_ms)
+        + f" [at {time.perf_counter() - T_START:.1f} s]")
     kinds = set(tfm.layer_kinds(cfg))
     need = {"ssm": ("ssd_fwd", "ssd_rule"), "attn": ("flash_fwd", "flash_rule"),
             "local_attn": ("flash_fwd", "flash_rule"), "rglru": ("lru_scans", "lru_rule")}
@@ -1432,19 +1480,183 @@ def train_and_profile(dev, arch: str) -> dict:
     """Phase 7 and its profile for one arch."""
     train = phase_train(dev, arch)
     phase_train_profile(dev, train)
-    log(f"[time] {arch} trained and profiled at {time.perf_counter() - T_START:.1f} s")
     return train
+
+
+# ------------------------------------------------------------------ runner
+# tiny at full width as OAR jobs, the model examples/cluster_train.py
+# schedules: the best-effort job takes 12 steps and checkpoints every 4, the
+# regular job that preempts it 4 steps.
+RUNNER_SPEC = {"kind": "train", "arch": "tiny", "smoke": False, "global_batch": 8,
+               "seq_len": 2048, "log_every": 1}
+RUNNER_STEPS = {"besteffort": 12, "regular": 4}
+RUNNER_JOIN_S = 300.0
+# The clone resumes from f32 leaves restored bit for bit and from the
+# batches the uninterrupted run sees at those steps; the card may only sum
+# in another order. A resume that went wrong (the data from step 0, the
+# moments lost) moves the loss by tenths: tiny's loss falls 0.1-0.5 a step.
+RUNNER_LOSS_TOL = 1e-4
+
+
+class JobsTable:
+    """What the runner reads of OAR's database: an in-memory sqlite table
+    jobs(idJob, state, toCancel) behind ``query_one``. Runner threads query
+    it, so one lock serialises the connection; it counts each job's queries
+    (one preempt check per step)."""
+
+    def __init__(self):
+        self.conn = sqlite3.connect(":memory:", check_same_thread=False)
+        self.conn.row_factory = sqlite3.Row
+        self.conn.execute("CREATE TABLE jobs (idJob INTEGER PRIMARY KEY, state TEXT, "
+                          "toCancel INTEGER)")
+        self.lock = threading.Lock()
+        self.checks: dict[int, int] = {}
+
+    def query_one(self, sql, args=()):
+        with self.lock:
+            self.checks[args[0]] = self.checks.get(args[0], 0) + 1
+            return self.conn.execute(sql, args).fetchone()
+
+    def running(self, job_id: int) -> None:
+        with self.lock:
+            self.conn.execute("INSERT INTO jobs VALUES (?, 'Running', 0)", (job_id,))
+
+    def cancel(self, job_id: int) -> int:
+        """Sets toCancel=1, as OAR's scheduler does first when a regular job
+        needs a best-effort job's resources; returns the job's checks so far,
+        read under the same lock."""
+        with self.lock:
+            self.conn.execute("UPDATE jobs SET toCancel=1 WHERE idJob=?", (job_id,))
+            return self.checks.get(job_id, 0)
+
+
+class Completions:
+    """What the runner calls of OAR's executor: records ``complete``."""
+
+    def __init__(self):
+        self.calls = []
+
+    def complete(self, job_id, *, ok=True, message=""):
+        self.calls.append((job_id, ok, message))
+
+
+def _join(runner, job_id: int) -> TrainResult:
+    runner.threads[job_id].join(RUNNER_JOIN_S)
+    if runner.threads[job_id].is_alive():
+        fail(f"runner job {job_id} did not end within {RUNNER_JOIN_S} s")
+    result = runner.results[job_id]
+    if not isinstance(result, TrainResult):
+        fail(f"runner job {job_id} failed: {result!r}")
+    return result
+
+
+def _steady_ms(result: TrainResult) -> float:
+    """Mean ms of steps after the first, from the loop's cumulative
+    sec_per_step at the first and last logged steps (log_every=1)."""
+    first, last = result.history[0], result.history[-1]
+    n = last["step"] - first["step"] + 1
+    return 1e3 * (last["sec_per_step"] * n - first["sec_per_step"]) / (n - 1)
+
+
+def phase_runner(dev) -> dict:
+    """Phase 8: ClusterRunner with OAR's two-step preemption, tiny at full
+    width. Jobs 1 (best-effort) and 2 (regular) overlap on the card, as OAR
+    launches the regular job as soon as it flags the best-effort one; job 3
+    is the clone OAR resubmits, job 4 the same spec run without a break
+    (and without checkpoints, which change nothing it computes)."""
+    db, done = JobsTable(), Completions()
+    runner = ClusterRunner(db, done, device=dev)
+    cfg = configs.get("tiny").replace(dtype="float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_ckpt_", dir=ROOT) as tmp:
+        be = {**RUNNER_SPEC, "steps": RUNNER_STEPS["besteffort"], "ckpt_every": 4,
+              "ckpt_dir": f"{tmp}/besteffort"}
+        reg = {**RUNNER_SPEC, "steps": RUNNER_STEPS["regular"], "ckpt_dir": f"{tmp}/regular"}
+        reset_counts()                        # count the main path's run only
+        t0 = time.perf_counter()
+        db.running(1)
+        runner({**be, "idJob": 1}, ["host0"])
+        while not ckpt.list_steps(be["ckpt_dir"]):
+            if not runner.threads[1].is_alive() or time.perf_counter() - t0 > RUNNER_JOIN_S:
+                fail(f"the best-effort job wrote no checkpoint: {runner.results.get(1)!r}")
+            time.sleep(0.005)
+        checks = db.cancel(1)
+        t_cancel = time.perf_counter()
+        db.running(2)
+        runner({**reg, "idJob": 2}, ["host0"])
+        preempted = _join(runner, 1)
+        yield_ms = 1e3 * (time.perf_counter() - t_cancel)
+        kept = ckpt.list_steps(be["ckpt_dir"])
+        regular = _join(runner, 2)
+        db.running(3)
+        runner({**be, "idJob": 3}, ["host0"])
+        clone = _join(runner, 3)
+        db.running(4)
+        runner({**be, "ckpt_dir": None, "idJob": 4}, ["host0"])
+        whole = _join(runner, 4)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps_run = preempted.step + regular.step + (clone.step - clone.history[0]["step"]) \
+        + whole.step
+    expect = {k: n * steps_run for k, n in launches_per_train_step(cfg).items()}
+    same = {m["step"]: m["loss"] for m in whole.history}
+    loss_err = max(abs(m["loss"] - same[m["step"]]) for m in clone.history)
+    log(f"[runner] tiny {RUNNER_SPEC['global_batch']} x {RUNNER_SPEC['seq_len']} via "
+        f"ClusterRunner: best-effort job flagged after its first checkpoint, at its "
+        f"check {checks}: {preempted.status} at step {preempted.step} "
+        f"({preempted.step - checks + 1} step after the flag) in {yield_ms:.3f} ms, "
+        f"checkpoints {kept}; regular job beside it: {regular.status} at {regular.step}; "
+        f"clone from step {clone.history[0]['step']}: {clone.status} at {clone.step}; "
+        f"complete calls {[(j, ok) for j, ok, _ in done.calls]}")
+    log(f"[runner] final loss {clone.metrics['loss']:.6f}, uninterrupted "
+        f"{whole.metrics['loss']:.6f}, worst |diff| over the clone's steps "
+        f"{loss_err:.3e} (tol {RUNNER_LOSS_TOL:g}); ms/step (steps after the first) "
+        f"uninterrupted {_steady_ms(whole):.3f}, clone {_steady_ms(clone):.3f}; peak "
+        f"{peak / 2**30:.3f} GiB; launches {counts_str(launches)} for {steps_run} steps; wall "
+        f"{wall:.3f} s [at {time.perf_counter() - T_START:.1f} s]")
+    if preempted.status != "preempted" or preempted.step != checks or kept[-1] != preempted.step:
+        fail(f"the best-effort job did not yield within one step with a checkpoint: "
+             f"{preempted.status} at {preempted.step} after {checks} checks, kept {kept}")
+    want = [(2, True, f"trained to step {RUNNER_STEPS['regular']}")] + [
+        (j, True, f"trained to step {RUNNER_STEPS['besteffort']}") for j in (3, 4)]
+    if done.calls != want:
+        fail(f"complete calls {done.calls}, expected {want}")
+    if not 0 < clone.history[0]["step"] == preempted.step:
+        fail(f"the clone started at step {clone.history[0]['step']}, not at the checkpoint")
+    if not all(math.isfinite(m["loss"]) for m in clone.history + whole.history):
+        fail("non-finite loss in the runner's jobs")
+    if loss_err > RUNNER_LOSS_TOL:
+        fail(f"the resumed clone's losses differ from the uninterrupted run's by {loss_err:.3e}")
+    if launches != expect:
+        fail(f"the runner's jobs launched {launches}, expected {expect}")
+    return {"arch": "tiny via ClusterRunner", "launches": launches, "yield_ms": yield_ms,
+            "step_ms": _steady_ms(whole), "peak_gib": peak / 2**30, "loss_err": loss_err,
+            "card": nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")}
+
+
+def _measured(x):
+    """``x`` without the old design's timings that were not measured (no
+    --old-src): keys ``old_*`` whose value is None, at any depth."""
+    if isinstance(x, dict):
+        return {k: _measured(v) for k, v in x.items()
+                if not (k.startswith("old") and v is None)}
+    if isinstance(x, list):
+        return [_measured(v) for v in x]
+    return x
 
 
 def record(name: str, source: str, replaces: str, rec: dict, paths: dict, **extra) -> dict:
     """One entry of the kernels line: ``launches`` sums the main paths' runs
     (``paths``: {path: launches}), the numbers are ``rec``'s (phase 3)."""
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(paths.values()), "max_abs_err": rec["max_abs_err"],
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "shape": rec["shape"], "old_design_ms": rec["old_ms"],
-            "launches_by_path": paths, **extra}
+    return _measured({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                      "launches": sum(paths.values()), "max_abs_err": rec["max_abs_err"],
+                      "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                      "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                      "library_ms": rec["library_ms"], "shape": rec["shape"],
+                      "old_design_ms": rec["old_ms"], "launches_by_path": paths, **extra})
 
 
 def dynamic_smem() -> dict:
@@ -1461,11 +1673,12 @@ def dynamic_smem() -> dict:
             "ssd_state_tc_kernel": ssd.repro_ssd_bf16_state_smem_bytes()}
 
 
-def _ms(x) -> str:
-    return "not measured" if x is None else f"{x:.4f}"
+def _old(ms) -> str:
+    """The old design's time beside the new one's, when --old-src gave one."""
+    return "" if ms is None else f" (old {ms:.4f})"
 
 
-def summary(built: dict, recs: dict, serves: dict, trains: list) -> None:
+def summary(built: dict, recs: dict, serves: dict, trains: list, runner: dict) -> None:
     """The run in brief, just before the kernels line."""
     log(f"[summary] card {nvidia_smi('name,power.limit')}; build {built['seconds']:.3f} s")
     smem = dynamic_smem()
@@ -1480,18 +1693,19 @@ def summary(built: dict, recs: dict, serves: dict, trains: list) -> None:
     rows += [("lru_scan", t) for t in recs["lru"].values()] + [("ssd_scan", recs["ssd"])]
     log("[summary] bf16 kernel ms (old design), share of the bound; plain, library and "
         "bound ms in the kernels line: " + "; ".join(
-            f"{name} {t['shape'][5:]} {t['ms']:.4f} ({_ms(t['old_ms'])}), "
+            f"{name} {t['shape'][5:]} {t['ms']:.4f}{_old(t['old_ms'])}, "
             f"{t['bound_ms'] / t['ms']:.1%}" for name, t in rows))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for S, t in recs["lru"].items():
         L, V, chunk, carry, apply = recs["lru_launch"][S]
         log(f"[summary] lru_scan S={S}: launched L={L}, V={V}, CTAs {chunk}/{carry}/{apply} "
-            f"on {sms} SMs; device ms L2 flushed {t['ms']:.4f} (old {_ms(t['old_ms'])}), "
-            f"back to back {t['warm_ms']:.4f} (old {_ms(t['old_warm_ms'])}); CUDA events "
-            f"{t['events_ms']:.4f} (old {_ms(t['old_events_ms'])})")
+            f"on {sms} SMs; device ms L2 flushed {t['ms']:.4f}{_old(t['old_ms'])}, "
+            f"back to back {t['warm_ms']:.4f}{_old(t['old_warm_ms'])}; CUDA events "
+            f"{t['events_ms']:.4f}{_old(t['old_events_ms'])}")
     g = recs["ssd_grad"]
     log("[summary] gradient rules, ms per call | library | bound")
-    log(f"[summary] ssd_scan (plain recompute) {g['shape']}: {g['ms']:.4f}")
+    log(f"[summary] ssd_scan (plain recompute) {g['shape']}: {g['ms']:.4f} | none | "
+        f"{g['bound_ms']:.4f} {g['bound_by']}, {g['bound_ms'] / g['ms']:.1%} of bound")
     for t in recs["flash_grad"]:
         log(f"[summary] flash_attention (plain recompute) {t['shape']}: {t['ms']:.4f} | "
             f"SDPA backward {t['library_ms']:.4f} | {t['bound_ms']:.4f} {t['bound_by']}, "
@@ -1500,19 +1714,19 @@ def summary(built: dict, recs: dict, serves: dict, trains: list) -> None:
         log(f"[summary] lru_scan (reversed scan) {t['shape']}: {t['ms']:.4f} (autograd "
             f"through the plain scan {t['plain_ms']:.4f}) | none | {t['bound_ms']:.4f} "
             f"{t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of bound")
-    for arch, r in serves.items():
-        log(f"[summary] {arch} serving: {r['tokens_s']:.2f} tokens/s, prefill "
-            f"{r['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} ms per step, peak "
-            f"{r['peak_gib']:.3f} GiB, device idle {r['idle']:.1%}, flash "
-            f"{r['flash_ms']:.3f} and RG-LRU scan {r['lru_ms']:.3f} of {r['busy_ms']:.3f} "
-            f"kernel ms")
-    for t in trains:
-        log(f"[summary] {t['arch']} training: {t['step_ms']:.3f} ms/step mean, "
-            f"{t['median_ms']:.3f} median, {t['tokens_s']:.1f} tokens/s, peak "
-            f"{t['peak_gib']:.3f} GiB, losses {t['losses'][0]:.6f} .. {t['losses'][-1]:.6f}; "
-            f"profiled step {t['busy_ms']:.3f} kernel ms ("
-            + ", ".join(f"{k} {v:.3f}" for k, v in t["shares"].items())
-            + f"), device idle {t['idle']:.1%}")
+    log("[summary] serving: tokens/s, prefill ms, decode ms/step, peak GiB, device "
+        "idle, flash + scan of kernel ms: " + "; ".join(
+            f"{arch} {r['tokens_s']:.2f}, {r['prefill_ms']:.3f}, {r['decode_ms']:.3f}, "
+            f"{r['peak_gib']:.3f}, {r['idle']:.1%}, {r['flash_ms']:.3f} + {r['lru_ms']:.3f} "
+            f"of {r['busy_ms']:.3f}" for arch, r in serves.items()))
+    log("[summary] training: ms/step mean, median, tokens/s, peak GiB, losses, device "
+        "idle: " + "; ".join(
+            f"{t['arch']} {t['step_ms']:.3f}, {t['median_ms']:.3f}, {t['tokens_s']:.1f}, "
+            f"{t['peak_gib']:.3f}, {t['losses'][0]:.6f} .. {t['losses'][-1]:.6f}, "
+            f"{t['idle']:.1%}" for t in trains)
+        + f"; {runner['arch']}: {runner['step_ms']:.3f} ms/step, peak "
+        f"{runner['peak_gib']:.3f} GiB, yielded in {runner['yield_ms']:.3f} ms, clone's "
+        f"loss |diff| {runner['loss_err']:.3e}")
 
 
 def main() -> int:
@@ -1534,13 +1748,28 @@ def main() -> int:
     serves = {"granite-8b": serve_and_profile(dev, "granite-8b", max_len=1024,
                                               prompt_range=(100, 340)),
               "recurrentgemma-2b": serve_and_profile(dev, "recurrentgemma-2b", max_len=4096,
-                                                     prompt_range=(100, 2500))}
+                                                     prompt_range=(100, 2500)),
+              # request 0 at 2048 tokens: the prefill carries state over 8 chunks
+              "mamba2-130m": serve_and_profile(dev, "mamba2-130m", max_len=4096,
+                                               prompt_range=(100, 2048))}
+    log("[serve] card after each run: "
+        + "; ".join(f"{arch} {r['card']}" for arch, r in serves.items()))
     trains = [train_and_profile(dev, arch) for arch in TRAIN_RUNS]
+    runner = phase_runner(dev)
+    log("[train] card after each run: "
+        + "; ".join(f"{t['arch']} {t['card']}" for t in trains + [runner]))
 
     def paths(kernel):
-        runs = [(f"{arch} serving", r) for arch, r in serves.items()]
-        runs += [(f"{t['arch']} training", t) for t in trains]
-        return {name: r["launches"][kernel] for name, r in runs if r["launches"][kernel]}
+        """{path: launches} for each main path whose model has a layer of the
+        kernel's kind: the launches of every such run, zeros included (the
+        mamba2 prefill's plain scan launches no SSD kernel)."""
+        kinds = {"flash_attention": {"attn", "local_attn"}, "lru_scan": {"rglru"},
+                 "ssd_scan": {"ssm"}}[kernel]
+        runs = [(f"{arch} serving", r["cfg"], r) for arch, r in serves.items()]
+        runs += [(f"{t['arch']} training", t["cfg"], t) for t in trains]
+        runs.append(("tiny via ClusterRunner (4 jobs)", configs.get("tiny"), runner))
+        return {name: r["launches"][kernel] for name, cfg, r in runs
+                if kinds & set(tfm.layer_kinds(cfg))}
 
     kernels = [
         record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -1555,7 +1784,7 @@ def main() -> int:
                flops=recs["ssd"]["flops"], bytes=recs["ssd"]["bytes"],
                gradient_rule=recs["ssd_grad"]),
     ]
-    summary(built, recs, serves, trains)
+    summary(built, recs, serves, trains, runner)
     log(f"[time] total {time.perf_counter() - T_START:.1f} s")
     log(nvidia_smi("name,power.limit"))
     log(json.dumps({"kernels": kernels}))

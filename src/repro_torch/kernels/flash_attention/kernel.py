@@ -11,6 +11,7 @@ tensors only: it launches the kernel or raises, and never falls back.
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -24,11 +25,14 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
+_lock = threading.Lock()     # guards _lib and the launch count: threads launch too
 
 
 def _library() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
+    with _lock:
+        if _lib is not None:
+            return _lib
         lib = build_library(SOURCE)
         fn = lib.repro_flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
@@ -81,7 +85,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  0 if window is None else int(window), D ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    flash_attention_kernel.launches += 1
+    with _lock:
+        flash_attention_kernel.launches += 1
     return out
 
 

@@ -18,6 +18,7 @@ only: it launches the kernel or raises, and never falls back.
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -31,11 +32,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID = (ctypes.c_longlong * 4)()    # the library's report of the last launch
 
 _lib = None
+_lock = threading.Lock()     # guards _lib and the launch count: threads launch too
 
 
 def _library() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
+    with _lock:
+        if _lib is not None:
+            return _lib
         lib = build_library(SOURCE)
         lib.repro_lru_scan_chunk_len.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
         lib.repro_lru_scan_chunk_len.restype = ctypes.c_int
@@ -93,7 +97,8 @@ def lru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                  p + 8 * n, B, S, W, L, is_bf16, stream, _GRID)
     if err != 0:
         raise RuntimeError(f"lru_scan kernel launch failed: CUDA error {err}")
-    lru_scan_kernel.launches += 1
+    with _lock:
+        lru_scan_kernel.launches += 1
     lru_scan_kernel.last_launch = (L, *_GRID)
     return out
 

@@ -11,6 +11,7 @@ it launches the kernel or raises, and never falls back.
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -25,11 +26,14 @@ _MAX_SMEM = 232448               # the H100's opt-in shared memory per block
 TC_MAX_P, TC_MAX_N = 64, 128     # the bf16 route's register tiles
 
 _lib = None
+_lock = threading.Lock()     # guards _lib and the launch count: threads launch too
 
 
 def _library() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
+    with _lock:
+        if _lib is not None:
+            return _lib
         lib = build_library(SOURCE)
         fn = lib.repro_ssd_fwd
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
@@ -134,7 +138,8 @@ def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Ten
                                     stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
-    ssd_kernel.launches += 1
+    with _lock:
+        ssd_kernel.launches += 1
     return y
 
 

@@ -7,7 +7,9 @@ gradient through the scan is autodiff of plain jnp (it has no backward
 kernel), and the port's is the same thing written out: :func:`ssd_vjp`
 recomputes the plain chunked function from the saved inputs and takes its
 vector-Jacobian product. That is the gradient rule, not a fallback: the
-forward never runs the plain version on the card.
+forward never runs the plain version on the card. The one-token decode
+step is plain PyTorch (:func:`ssd_decode_step`), as it is plain jnp in the
+reference.
 """
 
 from __future__ import annotations
@@ -15,9 +17,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.ssd.kernel import ssd_kernel
-from repro_torch.kernels.ssd.ref import ssd_ref
+from repro_torch.kernels.ssd.ref import ssd_decode_step_ref, ssd_ref
 
-__all__ = ["ssd", "ssd_vjp"]
+__all__ = ["ssd", "ssd_vjp", "ssd_decode_step"]
+
+ssd_decode_step = ssd_decode_step_ref
 
 
 def ssd_vjp(grad_y: torch.Tensor, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

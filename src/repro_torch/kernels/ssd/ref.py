@@ -11,10 +11,11 @@ evaluated in the chunked (duality) form: each chunk's intra-chunk part is a
 masked quadratic, attention-like product, and the (P×N) state is carried
 from chunk to chunk. This is the CPU path of
 :func:`repro_torch.kernels.ssd.ssd`, the oracle the CUDA kernel is held
-against on the card, and the function whose autograd is the kernel's
-gradient rule. It takes a zero initial state and returns y only: the
-reference's ``initial_state``/``return_state`` serve the mamba2 prefill,
-which is not ported yet.
+against on the card, the function whose autograd is the kernel's
+gradient rule, and the mamba2 prefill's scan, which also returns the final
+state (``return_state``). It starts from a zero state: the reference's
+``initial_state`` has no caller. :func:`ssd_decode_step_ref` is the
+one-token recurrence of the decode path.
 """
 
 from __future__ import annotations
@@ -22,14 +23,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ssd_ref"]
+__all__ = ["ssd_ref", "ssd_decode_step_ref"]
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-            Cm: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
+            Cm: torch.Tensor, *, chunk: int = 256, return_state: bool = False):
     """x: (B,S,H,P); dt: (B,S,H) (>0, post-softplus); A: (H,) (<0);
     Bm, Cm: (B,S,N) (single group, broadcast over heads).
-    Returns y: (B,S,H,P) in x's dtype; all the math is f32."""
+    Returns y: (B,S,H,P) in x's dtype [and the final state (B,H,P,N) in
+    f32]; all the math is f32."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -78,4 +80,17 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor
                * torch.exp(cum_h)[..., None])
 
     y = (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(Bsz, T, H, P)
-    return y[:, :S].to(x.dtype)
+    y = y[:, :S].to(x.dtype)
+    return (y, h) if return_state else y
+
+
+def ssd_decode_step_ref(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                        A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor):
+    """One-token recurrent step. state: (B,H,P,N) f32; x: (B,H,P); dt: (B,H);
+    Bm, Cm: (B,N). Returns (y (B,H,P) in x's dtype, new_state in f32)."""
+    dA = torch.exp(dt.float() * A.float())                      # (B,H)
+    u = (dt[..., None] * x).float()                             # (B,H,P)
+    new_state = (dA[..., None, None] * state.float()
+                 + u[..., None] * Bm[:, None, None, :].float())
+    y = torch.einsum("bhpn,bn->bhp", new_state, Cm.float())
+    return y.to(x.dtype), new_state

@@ -4,10 +4,11 @@
         --full --requests 12 --max-batch 4 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-2b --full --max-len 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --full
 
 Runs on the CUDA card by default, with weights made on the card from
-``--seed`` in the config's dtype (bf16 for both archs; ``--full`` is the
-published width, otherwise the smoke width). ``--device cpu`` serves on the
+``--seed`` in the config's dtype (bf16 for the served archs; ``--full`` is
+the published width, otherwise the smoke width). ``--device cpu`` serves on the
 CPU in float32, as the reference launcher does off the accelerator. With no
 card and no ``--device cpu`` it raises.
 """

@@ -1,7 +1,6 @@
 """Model assembly: param shapes, the full-sequence forward and loss
-(training; the dense, hybrid and ssm families), and the prefill and decode
-steps (serving; the dense and hybrid families). Port of
-``repro.models.model``.
+(training), and the prefill and decode steps (serving), of the dense,
+hybrid and ssm families. Port of ``repro.models.model``.
 
 Parameters and caches keep the reference's layouts, so JAX trees map one to
 one (see :mod:`repro_torch.interop`). When every layer has one kind (and
@@ -20,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import ParamSpec, init_tree, rms_norm, take_embedding
 from repro_torch.models.rglru import rglru_cache_shapes
+from repro_torch.models.ssm import ssm_cache_shapes
 
 __all__ = ["param_shapes", "init_params", "forward", "loss_fn", "cache_shapes",
            "init_cache", "prefill", "decode_step", "compute_dtype", "uniform_scan"]
@@ -106,8 +106,7 @@ def loss_fn(params, cfg, batch) -> torch.Tensor:
 # -------------------------------------------------------------------- cache
 def _layer_cache_shapes(cfg, kind: str, batch: int, max_len: int, dtype) -> dict:
     if kind == "ssm":
-        raise tfm._not_ported("the decode cache of layer kind 'ssm'",
-                              tfm.MAMBA2_SERVING)
+        return ssm_cache_shapes(cfg, batch, dtype)
     if kind == "rglru":
         return rglru_cache_shapes(cfg, batch, dtype)
     slots = max_len
@@ -119,7 +118,7 @@ def _layer_cache_shapes(cfg, kind: str, batch: int, max_len: int, dtype) -> dict
 
 def cache_shapes(cfg, batch: int, max_len: int) -> dict:
     """Nested {name: (shape, dtype)} decode-cache description; K/V and the
-    conv tail in the compute dtype, the RG-LRU state in f32."""
+    conv tails in the compute dtype, the RG-LRU and SSM states in f32."""
     dtype = compute_dtype(cfg)
     kinds = tfm.layer_kinds(cfg)
     if uniform_scan(cfg):

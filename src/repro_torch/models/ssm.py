@@ -1,10 +1,15 @@
-"""Mamba-2 (SSD) block, full-sequence path (port of ``repro.models.ssm``):
-in-proj → causal depthwise conv → SSD scan → gated norm → out-proj.
+"""Mamba-2 (SSD) block (port of ``repro.models.ssm``): in-proj → causal
+depthwise conv → SSD scan → gated norm → out-proj, plus the one-token
+recurrent decode path, whose state (the conv tail in the compute dtype and
+the (H, P, N) SSM state in f32) replaces the KV cache.
 
 The casts sit where the reference puts them: the softplus of dt and
 ``A = -exp(A_log)`` in f32, the projections, the conv and the gate in the
-compute dtype. The one-token decode path (``ssm_decode``,
-``ssm_cache_shapes``) comes with mamba2 serving (ROADMAP.md Queue 1).
+compute dtype. The full-sequence mixer (:func:`ssm_apply`, training) and
+the prompt pass (``transformer._ssm_prefill``, serving) share one body,
+:func:`ssm_seq`: training scans with :func:`ssd` (the kernel on the card),
+the prefill with the plain scan, which also returns the final state, as
+the reference's prefill does.
 """
 
 from __future__ import annotations
@@ -12,10 +17,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd import ssd
+from repro_torch.kernels.ssd import ssd, ssd_decode_step, ssd_ref
 from repro_torch.models.layers import ParamSpec, rms_norm
 
-__all__ = ["ssm_dims", "ssm_specs", "ssm_apply"]
+__all__ = ["ssm_dims", "ssm_specs", "ssm_seq", "ssm_apply", "ssm_cache_shapes",
+           "ssm_decode"]
 
 
 def ssm_dims(cfg):
@@ -62,8 +68,25 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return sum(pad[:, i:i + S, :] * w[i] for i in range(W)) + b
 
 
-def ssm_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Full-sequence SSD mixer. x: (B, S, D) → (B, S, D)."""
+def _conv_split(conv_out: torch.Tensor, cfg):
+    d_inner, _, _, N, _ = ssm_dims(cfg)
+    return (conv_out[..., :d_inner], conv_out[..., d_inner:d_inner + N],
+            conv_out[..., d_inner + N:])
+
+
+def _gated_out(p: dict, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor, cfg):
+    """Skip, gated norm and out-proj: y, xh (..., H, P); z (..., d_inner)."""
+    y = y + p["D_skip"].to(z.dtype)[:, None] * xh
+    y = y.reshape(*z.shape)
+    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    return y @ p["out_proj"].to(z.dtype)
+
+
+def ssm_seq(p: dict, x: torch.Tensor, cfg, *, prefill: bool = False):
+    """The SSD mixer over a full sequence. x: (B, S, D). Returns the output
+    (B, S, D), the pre-conv projection (B, S, conv_dim), whose last rows are
+    the decode cache's conv tail, and, with ``prefill``, the final state
+    (B, H, P, N) in f32 (else None)."""
     B, S, D = x.shape
     d_inner, H, P, N, conv_dim = ssm_dims(cfg)
     proj = x @ p["in_proj"].to(x.dtype)
@@ -71,14 +94,49 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
     conv_out = F.silu(_causal_conv(conv_in, p["conv_w"].to(x.dtype),
                                    p["conv_b"].to(x.dtype)))
-    xs = conv_out[..., :d_inner]
-    Bm = conv_out[..., d_inner:d_inner + N]
-    Cm = conv_out[..., d_inner + N:]
+    xs, Bm, Cm = _conv_split(conv_out, cfg)
     dt = F.softplus(dt.float() + p["dt_bias"].float())           # (B,S,H)
     A = -torch.exp(p["A_log"].float())                          # (H,)
     xh = xs.reshape(B, S, H, P)                                 # a view: no copy
-    y = ssd(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
-    y = y + p["D_skip"].to(x.dtype)[None, None, :, None] * xh
-    y = y.reshape(B, S, d_inner)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return y @ p["out_proj"].to(x.dtype)
+    if prefill:
+        y, state = ssd_ref(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk, return_state=True)
+    else:
+        y, state = ssd(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk), None
+    return _gated_out(p, y, xh, z, cfg), conv_in, state
+
+
+def ssm_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence SSD mixer (training). x: (B, S, D) → (B, S, D)."""
+    return ssm_seq(p, x, cfg)[0]
+
+
+# --------------------------------------------------------------------- decode
+def ssm_cache_shapes(cfg, batch: int, dtype) -> dict:
+    d_inner, H, P, N, conv_dim = ssm_dims(cfg)
+    return {
+        "conv": ((batch, cfg.conv_width - 1, conv_dim), dtype),
+        "state": ((batch, H, P, N), torch.float32),
+    }
+
+
+def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg) -> torch.Tensor:
+    """One-token step. x: (B, 1, D); ``cache`` ({"conv" (B, W-1, C), "state"
+    (B, H, P, N)} of this layer) is updated in place (the reference returns a
+    new one). Returns out (B, 1, D)."""
+    B = x.shape[0]
+    d_inner, H, P, N, conv_dim = ssm_dims(cfg)
+    proj = (x @ p["in_proj"].to(x.dtype))[:, 0]
+    z, xs, Bm, Cm, dt = _split(proj, cfg)
+    conv_in = torch.cat([xs, Bm, Cm], dim=-1)                   # (B, C)
+    hist = torch.cat([cache["conv"], conv_in[:, None, :]], dim=1)
+    w = p["conv_w"].to(x.dtype)
+    conv_out = F.silu(torch.einsum("bwc,wc->bc", hist, w) + p["conv_b"].to(x.dtype))
+    xs, Bm, Cm = _conv_split(conv_out, cfg)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())           # (B,H)
+    A = -torch.exp(p["A_log"].float())
+    xh = xs.reshape(B, H, P)
+    y, state = ssd_decode_step(cache["state"], xh, dt, A, Bm, Cm)
+    out = _gated_out(p, y, xh, z, cfg)[:, None, :]
+    cache["conv"].copy_(hist[:, 1:, :])
+    cache["state"].copy_(state)
+    return out

@@ -8,12 +8,12 @@ Layer kinds ported so far:
               forward, prefill and decode
   rglru       RG-LRU recurrent mixer + FFN; training forward, prefill and
               decode
-  ssm         Mamba-2 SSD mixer (no FFN — the mamba block subsumes it); the
-              training forward
+  ssm         Mamba-2 SSD mixer (no FFN — the mamba block subsumes it);
+              training forward, prefill and decode
 
-The other kinds of the reference (enc_attn, cross), MoE / gelu MLPs and the
-serving steps of ssm belong to ROADMAP items not done yet; asking for them
-raises ``NotImplementedError`` naming the item.
+The other kinds of the reference (enc_attn, cross) and MoE / gelu MLPs
+belong to ROADMAP items not done yet; asking for them raises
+``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ _ROADMAP = {
     "vlm": "Queue 1 item 4 (vlm family)", "moe": "Queue 1 item 5 (moe family)",
     "audio": "Queue 1 item 6 (audio family)",
 }
-MAMBA2_SERVING = "Queue 1 item 11 (mamba2 serving)"
 _KINDS = ("attn", "local_attn", "rglru", "ssm")
 
 
@@ -114,10 +113,11 @@ def block_apply(p: dict, x: torch.Tensor, cfg, kind: str) -> torch.Tensor:
 def block_prefill(p: dict, x: torch.Tensor, cfg, kind: str, max_len: int):
     """Prompt pass of one block; also returns this layer's decode cache:
     K/V laid into ``max_len`` slots (``min(window, max_len)`` for a sliding
-    window), or the RG-LRU conv tail and last state."""
-    if kind == "ssm":
-        raise _not_ported("the prefill of layer kind 'ssm'", MAMBA2_SERVING)
+    window), or the conv tail and last state of a recurrent mixer."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    if kind == "ssm":
+        out, cache = _ssm_prefill(p, h, cfg)
+        return x + out, cache                        # mamba block: no FFN
     if kind == "rglru":
         out, cache = _rglru_prefill(p, h, cfg)
         return _ffn(p, x + out, cfg), cache
@@ -142,6 +142,22 @@ def _kv_to_cache(k: torch.Tensor, v: torch.Tensor, slots: int) -> dict:
     return {"k": k_c, "v": v_c}
 
 
+def _conv_tail(u: torch.Tensor, cfg) -> torch.Tensor:
+    """The last conv_width - 1 rows of u (B, S, C), left-padded with zeros
+    for a shorter prompt: the decode cache's conv history."""
+    S, tail_len = u.shape[1], cfg.conv_width - 1
+    return u[:, -tail_len:, :] if S >= tail_len else F.pad(u, (0, 0, tail_len - S, 0))
+
+
+def _ssm_prefill(p: dict, h: torch.Tensor, cfg):
+    """SSD mixer over the prompt (:func:`ssm_mod.ssm_seq`, the training
+    mixer's body, with the plain scan that returns the final state, as the
+    reference's prefill runs it). The conv cache is the conv tail of the
+    pre-conv projection; the state cache is the scan's final state in f32."""
+    out, conv_in, state = ssm_mod.ssm_seq(p, h, cfg, prefill=True)
+    return out, {"conv": _conv_tail(conv_in, cfg), "state": state}
+
+
 def _rglru_prefill(p: dict, h: torch.Tensor, cfg):
     """Recurrent mixer over the prompt (:func:`rglru_mod.rglru_seq`, the
     training mixer's body). The conv cache is the last conv_width - 1 rows
@@ -157,11 +173,11 @@ def _rglru_prefill(p: dict, h: torch.Tensor, cfg):
 # ------------------------------------------------------------------- decode
 def block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                  cfg, kind: str) -> torch.Tensor:
-    """One-token step. x: (B, 1, D); ``cache`` (this layer's {"k", "v"} or
-    {"conv", "h"}) is updated in place. Returns x."""
-    if kind == "ssm":
-        raise _not_ported("the decode step of layer kind 'ssm'", MAMBA2_SERVING)
+    """One-token step. x: (B, 1, D); ``cache`` (this layer's {"k", "v"},
+    {"conv", "h"} or {"conv", "state"}) is updated in place. Returns x."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    if kind == "ssm":
+        return x + ssm_mod.ssm_decode(p, h, cache, cfg)
     if kind == "rglru":
         x = x + rglru_mod.rglru_decode(p, h, cache, cfg)
     else:

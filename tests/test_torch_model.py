@@ -3,8 +3,8 @@ with ``repro_torch.interop``): parameter tree shapes and count, prefill
 logits and cache, decode steps at mixed per-row positions, the ring roll of
 a prompt longer than the cache, and the port's own seeded init statistics;
 the first train step of the dense and hybrid families against the JAX train
-step; and the paths not ported yet, which raise naming their ROADMAP
-item."""
+step; mamba2's prefill, decode and cache; and the paths not ported yet,
+which raise naming their ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -26,10 +26,8 @@ from repro.parallel.steps import make_train_step as jax_make_train_step  # noqa:
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
-from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.layers import flatten_specs  # noqa: E402
 from repro_torch.parallel.steps import make_train_step  # noqa: E402
-from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)   # float32 on both sides; op order differs
 
@@ -151,17 +149,42 @@ def test_other_families_raise_not_implemented():
 
 
 def test_mamba2_serving_raises_not_implemented():
-    cfg = tconfigs.get_smoke("mamba2-130m").replace(dtype="float32")
-    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
-    layer = {k: t[0] for k, t in params["layers"].items()}
-    x = torch.zeros(1, 4, cfg.d_model)
-    match = "ROADMAP.md Queue 1 item 11 \\(mamba2 serving\\)"
-    with pytest.raises(NotImplementedError, match=match):
-        TT.block_prefill(layer, x, cfg, "ssm", 8)
-    with pytest.raises(NotImplementedError, match=match):
-        TT.block_decode(layer, x[:, :1], {}, torch.zeros(1, dtype=torch.long), cfg, "ssm")
-    with pytest.raises(NotImplementedError, match=match):
-        ServeEngine(cfg, params, max_batch=1, max_len=8, device="cpu")
+    """The name dates from before ROADMAP.md item 11, when mamba2's prefill,
+    decode and cache raised. Now it is that item's check: mamba2-smoke's
+    prefill logits, two decode steps' logits and every cache leaf (the conv
+    tail and the f32 SSM state, stacked over layers) match the JAX package
+    on carried weights. The prompt of 45 tokens is ragged against the chunk
+    of 32, so the plain scan pads and carries its state over two chunks."""
+    jcfg = jconfigs.get_smoke("mamba2-130m").replace(dtype="float32")
+    tcfg = tconfigs.get_smoke("mamba2-130m").replace(dtype="float32")
+    assert jcfg.ssm_chunk == 32
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = interop.to_torch(jparams)
+    B, S, max_len = 2, 45, 64
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, jcfg.vocab_size, (B, S))
+    jl, jc = JM.prefill(jparams, jcfg, {"tokens": jnp.asarray(tokens)}, max_len)
+    with torch.inference_mode():
+        tl, tc = TM.prefill(tparams, tcfg, {"tokens": torch.from_numpy(tokens)}, max_len)
+    assert sorted(tc["layers"]) == sorted(jc["layers"]) == ["conv", "state"]
+    assert tc["layers"]["state"].dtype == torch.float32
+    assert tc["layers"]["state"].shape == (tcfg.num_layers, B, tcfg.ssm_heads,
+                                           tcfg.ssm_head_dim, tcfg.ssm_state)
+    for name, (shape, dtype) in TM.cache_shapes(tcfg, B, max_len)["layers"].items():
+        assert tc["layers"][name].shape == shape and tc["layers"][name].dtype == dtype
+    _close(tl, jl)
+    for name in ("conv", "state"):
+        _close(tc["layers"][name], jc["layers"][name])
+    pos = np.array([S, S - 3])
+    for step in range(2):
+        nxt = rng.integers(0, jcfg.vocab_size, (B, 1))
+        jl, jc = JM.decode_step(jparams, jcfg, jc, jnp.asarray(nxt), jnp.asarray(pos + step))
+        with torch.inference_mode():
+            tl, tc = TM.decode_step(tparams, tcfg, tc, torch.from_numpy(nxt),
+                                    torch.from_numpy(pos + step))
+        _close(tl, jl)
+        for name in ("conv", "state"):
+            _close(tc["layers"][name], jc["layers"][name])
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b"])

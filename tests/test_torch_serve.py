@@ -30,10 +30,13 @@ def _requests():
     return reqs
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b", "mamba2-130m"])
 def test_greedy_tokens_match_jax_engine(arch):
     """Prompts of 3-40 tokens: the longest pass recurrentgemma-smoke's
-    window of 32, so its local-attention rings roll at prefill."""
+    window of 32, so its local-attention rings roll at prefill, and
+    mamba2-smoke's chunk of 32, so its prefill scan carries state across
+    chunks; idle rows' SSM states advance in decode and are overwritten at
+    admission, as in the reference."""
     jcfg = jconfigs.get_smoke(arch).replace(dtype="float32")
     tcfg = tconfigs.get_smoke(arch).replace(dtype="float32")
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
@@ -54,7 +57,7 @@ def test_greedy_tokens_match_jax_engine(arch):
     assert len(tdone[-1].generated) < 12          # the max_len - 1 stop fired
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b", "mamba2-130m"])
 def test_launcher_runs_on_cpu(capsys, arch):
     done = launch_serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
                               "--max-len", "32", "--max-new", "4"])

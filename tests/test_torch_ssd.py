@@ -1,9 +1,11 @@
 """Port's SSD path against the JAX package, on the same numpy inputs and
 carried weights: the plain scan (the CPU path of
 ``repro_torch.kernels.ssd.ssd``) vs the reference Pallas kernel in interpret
-mode and vs the reference ``ssd_ref``; the kernel's gradient rule vs
-``jax.grad`` through the reference; the ``autograd.Function`` that wraps the
-kernel; and the Mamba-2 mixer ``ssm_apply``. The CUDA kernel itself is held
+mode and vs the reference ``ssd_ref``; the final state the mamba2 prefill
+takes from ``ssd_ref`` and the one-token decode step, vs the reference's;
+the kernel's gradient rule vs ``jax.grad`` through the reference; the
+``autograd.Function`` that wraps the kernel; and the Mamba-2 mixer
+``ssm_apply``. The CUDA kernel itself is held
 against the plain version on the card by chip_smoke.py (phase 3)."""
 
 import numpy as np
@@ -18,6 +20,7 @@ import torch  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.kernels.ssd.ops import ssd as jax_ssd  # noqa: E402
+from repro.kernels.ssd.ref import ssd_decode_step_ref as jax_ssd_decode_step  # noqa: E402
 from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
@@ -25,7 +28,8 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel_module  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd import ssd, ssd_kernel, ssd_ref, ssd_vjp  # noqa: E402
+from repro_torch.kernels.ssd import (ssd, ssd_decode_step, ssd_kernel, ssd_ref,  # noqa: E402
+                                     ssd_vjp)
 from repro_torch.models import ssm as TS  # noqa: E402
 
 # float32: the two sides differ by summation order only (the port sums cum in
@@ -73,6 +77,50 @@ def test_plain_ssd_matches_pallas_and_ref(B, S, H, P, N, chunk, dtype):
     out = out.float().numpy()
     np.testing.assert_allclose(out, np.asarray(pallas, np.float32), **TOL[dtype])
     np.testing.assert_allclose(out, np.asarray(ref, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 1, 2, 16, 16, 32),      # one step
+    (2, 77, 3, 16, 16, 32),     # ragged last chunk: the padded steps must not move h
+    (2, 96, 3, 12, 20, 32),     # S a multiple of chunk
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_ref_final_state_matches_reference(B, S, H, P, N, chunk, dtype):
+    """``return_state``: y and the final (B, H, P, N) state, in f32, as the
+    reference's ``h_final``."""
+    x, dt, A, Bm, Cm = _inputs(B, S, H, P, N, seed=S + P)
+    jy, jh = jax_ssd_ref(jnp.asarray(x, dtype), jnp.asarray(dt), jnp.asarray(A),
+                         jnp.asarray(Bm, dtype), jnp.asarray(Cm, dtype), chunk=chunk,
+                         return_state=True)
+    y, h = ssd_ref(*_torch(x, dt, A, Bm, Cm, dtype), chunk=chunk, return_state=True)
+    assert h.dtype == torch.float32 and h.shape == (B, H, P, N)
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(jy, np.float32), **TOL[dtype])
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_step_matches_reference(dtype):
+    """Three one-token steps from the state a prefill left, vs the
+    reference's ``ssd_decode_step_ref``: y in x's dtype, the state in f32;
+    and the steps continue the scan (the same y as ``ssd_ref`` over the
+    whole sequence)."""
+    B, S, H, P, N = 2, 40, 3, 16, 16
+    x, dt, A, Bm, Cm = _inputs(B, S + 3, H, P, N, seed=11)
+    tx, tdt, tA, tBm, tCm = _torch(x, dt, A, Bm, Cm, dtype)
+    y_all = ssd_ref(tx, tdt, tA, tBm, tCm, chunk=16)
+    _, state = ssd_ref(tx[:, :S], tdt[:, :S], tA, tBm[:, :S], tCm[:, :S], chunk=16,
+                       return_state=True)
+    jstate = jnp.asarray(state.numpy())
+    for t in range(S, S + 3):
+        jy, jstate = jax_ssd_decode_step(
+            jstate, jnp.asarray(x[:, t], dtype), jnp.asarray(dt[:, t]), jnp.asarray(A),
+            jnp.asarray(Bm[:, t], dtype), jnp.asarray(Cm[:, t], dtype))
+        y, state = ssd_decode_step(state, tx[:, t], tdt[:, t], tA, tBm[:, t], tCm[:, t])
+        assert y.dtype == getattr(torch, dtype) and state.dtype == torch.float32
+        np.testing.assert_allclose(y.float().numpy(), np.asarray(jy, np.float32), **TOL[dtype])
+        np.testing.assert_allclose(state.numpy(), np.asarray(jstate), **TOL["float32"])
+        np.testing.assert_allclose(y.float().numpy(), y_all[:, t].float().numpy(),
+                                   **TOL[dtype])
 
 
 @pytest.mark.parametrize("what", ["P", "N", "stride"])
