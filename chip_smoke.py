@@ -15,7 +15,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   3. kernels  — holds each kernel against its plain PyTorch version on the
                 card, on seeded inputs, in bf16 (the tensor-core routes of
                 flash attention and the SSD scan) and in f32 (their FMA
-                routes), at head_dim 16-256 and the RG-LRU and SSD shapes
+                routes), at head_dim 8 (run at width 16, zero-filled) to
+                256, GQA groups of 1 (moonshot) to 10, and the RG-LRU and
+                SSD shapes
                 (the scan also on long-memory inputs that carry h across
                 its chunks, and in f32 against an f64 scan beside the plain
                 version); one line per kernel: the cases and the worst
@@ -38,20 +40,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                 f64 autograd in bf16 (bf16 errors over the gradient's scale),
                 and times each rule beside its bound (flash's in f32 and bf16,
                 beside SDPA's backward);
-  4. model    — granite-smoke, recurrentgemma-smoke and mamba2-smoke in
-                float32 on the card against the same seeded weights on the
-                CPU: prefill, decode and every cache leaf, with the kernel
-                launches per prefill (none for mamba2: its prefill runs the
-                plain scan, as the reference's does);
-                mamba2-smoke, tiny-smoke, granite-smoke and
-                recurrentgemma-smoke training in float32, card against CPU:
-                the loss and every gradient leaf of one step, then a 3-step
+  4. model    — MODEL_CHECKS (granite-, recurrentgemma-, mamba2-, qwen2.5-,
+                mistral-nemo- with head_dim 32, llama3-, mixtral- and
+                moonshot-smoke) in float32 on the card against the same
+                seeded weights on the CPU: prefill, decode and every cache
+                leaf, with the kernel launches per prefill (none for mamba2:
+                its prefill runs the plain scan, as the reference's does);
+                TRAIN_CHECKS (mamba2-, tiny-, recurrentgemma-, qwen2.5- and
+                mixtral-smoke) training in float32, card against CPU: the
+                loss and every gradient leaf of one step, then a 3-step
                 (mamba2) or 2-step loss and grad_norm curve, with the kernel
-                launches per step;
+                launches per step; for MoE the experts each token chose on
+                the card against the CPU (a difference is a fault unless the
+                router's k-th and (k+1)-th probabilities lie within
+                ROUTE_TIE, a tie, reported) and the tokens dropped past the
+                capacity (some must be); one line for each kind of check;
   5. serving  — granite-8b at full width (36 x 4096, bf16), then
                 recurrentgemma-2b (26 layers, 2560 wide, bf16), then
-                mamba2-130m (24 x 768, bf16), weights made on the card from
-                a seed, each serving 8 requests through ServeEngine; the
+                mamba2-130m (24 x 768, bf16), then moonshot-v1-16b-a3b (48
+                x 2048, 64 experts top-6, bf16: 52.3 GiB of weights) and
+                qwen2.5-14b (48 x 5120, QKV bias, bf16), weights made on the
+                card from a seed, each serving 8 requests through
+                ServeEngine (the last two on granite-8b's schedule); the
                 kernel launch counts are set to 0 just before each run and
                 read just after it;
   6. profile  — after each serving run, the same 8 requests served again under
@@ -92,6 +102,7 @@ the per-kernel record. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import gc
 import json
@@ -128,6 +139,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ssd_kernel, ssd_ref, ssd_vjp  # noqa: E402
 from repro_torch.launch.cluster import ClusterRunner  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.parallel.steps import init_train_state, make_train_step  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -287,9 +299,13 @@ def read_counts() -> dict:
 NO_LAUNCHES = {"flash_attention": 0, "lru_scan": 0, "ssd_scan": 0}
 
 
+SHORT = {"flash_attention": "flash", "lru_scan": "lru", "ssd_scan": "ssd"}
+
+
 def counts_str(counts: dict) -> str:
-    """Launch counts on one short field: the kernels launched, or none."""
-    return ", ".join(f"{k} {n}" for k, n in counts.items() if n) or "none"
+    """Launch counts on one short field: the kernels launched (short names),
+    or none."""
+    return ", ".join(f"{SHORT[k]} {n}" for k, n in counts.items() if n) or "none"
 
 
 def launches_per_prefill(cfg) -> dict:
@@ -537,6 +553,10 @@ def check_flash(gen, dev, old) -> dict:
             cases.append((1, S, S, 10, 1, 256, dt, True, 2048))
     cases.append((2, 45, 45, 4, 1, 16, torch.float32, True, 32))  # recurrentgemma-smoke
     cases.append((2, 45, 45, 4, 1, 16, torch.bfloat16, True, 32))
+    for dt in (torch.float32, torch.bfloat16):    # llama3-smoke: D=8, run at width 16
+        cases += [(2, 45, 45, 8, 2, 8, dt, True, None), (1, 130, 130, 8, 2, 8, dt, True, 64)]
+    cases += [(1, 340, 340, 16, 16, 128, torch.bfloat16, True, None),  # moonshot: G=1
+              (1, 340, 340, 40, 8, 128, torch.bfloat16, True, None)]   # qwen2.5-14b: G=5
     check = Cases("flash_attention")
     for (B, Sq, Sk, H, K, D, dt, causal, window) in cases:
         q, k, v = inputs(B, Sq, Sk, H, K, D, dt)
@@ -551,7 +571,8 @@ def check_flash(gen, dev, old) -> dict:
     old_run = _old_flash(old) if old is not None else None
     timings = {}
     for (S, H, K, D, window) in ((340, 32, 8, 128, None), (2048, 32, 8, 128, None),
-                                 (340, 10, 1, 256, 2048), (2500, 10, 1, 256, 2048)):
+                                 (340, 10, 1, 256, 2048), (2500, 10, 1, 256, 2048),
+                                 (340, 16, 16, 128, None)):
         B = 1
         q, k, v = inputs(B, S, S, H, K, D, torch.bfloat16)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -577,7 +598,7 @@ def check_flash(gen, dev, old) -> dict:
         lib_ms = time_ms(lib)
         bound_ms, bound_by = attention_bound(B, S, S, H, K, D, True, window)
         shape = f"bf16 causal B=1 S={S} H={H} K={K} D={D} window={window}"
-        timings[(S, D)] = dict(shape=shape, ms=ms, old_ms=old_ms, plain_ms=plain_ms,
+        timings[(S, H, D)] = dict(shape=shape, ms=ms, old_ms=old_ms, plain_ms=plain_ms,
                                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                                max_abs_err=check.errs.get((S, torch.bfloat16, H, D, window)))
     return timings
@@ -1047,51 +1068,130 @@ def phase_kernels(dev, old: dict) -> dict:
             "flash_grad": check_flash_grad(gen, dev), "lru_grad": check_lru_grad(gen, dev)}
 
 
-def model_check(dev, arch: str, B: int, S: int, pos: list[int], max_len: int) -> None:
-    """Smoke width in float32, card against CPU on one set of seeded weights:
-    one prefill and one decode step at per-row positions ``pos``."""
-    cfg = configs.get_smoke(arch).replace(dtype="float32")
-    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+# A differing expert choice between the card and the CPU is a routing tie
+# when the k-th and (k+1)-th router probabilities of that token lie within
+# this of each other (f32 rounding of the router's product moves them by
+# about 1e-7); above it, a differing choice is a fault.
+ROUTE_TIE = 1e-5
+
+
+class Routes:
+    """While entered, wraps ``moe.route`` (every MoE layer's router, both
+    paths) and records per call: the chosen experts (sorted per token), the
+    gap between each token's k-th and (k+1)-th router probability, and, on
+    the dense path, the assignments dropped past the capacity."""
+
+    def __init__(self, cfg):
+        self.cfg, self.calls = cfg, []
+
+    def __enter__(self):
+        route = self.route = moe_mod.route
+
+        def recording(x, router, k):
+            probs, gate_vals, sel = route(x, router, k)
+            top = torch.topk(probs.detach(), k + 1, dim=-1).values
+            drops = 0
+            if sel.dim() == 3:                  # the dense dispatch over (B, S)
+                C = moe_mod.capacity(self.cfg, sel.shape[1])
+                _, assign, _, keep = moe_mod.slots(sel, self.cfg.num_experts, C)
+                drops = int(((assign > 0) & ~keep).sum())
+            self.calls.append((sel.sort(dim=-1).values.cpu(),
+                               (top[..., k - 1] - top[..., k]).cpu(), drops))
+            return probs, gate_vals, sel
+
+        moe_mod.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.route = self.route
+
+
+def compare_routes(name: str, cpu: Routes, card: Routes) -> tuple[str, bool]:
+    """The card's expert choices against the CPU's, call by call: a fault
+    (fail) where they differ and the gap is above ROUTE_TIE, a tie at or
+    below it. Returns (a short report, whether a tie was found)."""
+    if len(cpu.calls) != len(card.calls):
+        fail(f"{name}: {len(card.calls)} router calls on the card, {len(cpu.calls)} on the CPU")
+    tokens, ties, faults, min_gap = 0, [], [], math.inf
+    for (sa, ga, _), (sb, _, _) in zip(cpu.calls, card.calls):
+        differ = (sa != sb).any(dim=-1)
+        tokens += differ.numel()
+        min_gap = min(min_gap, ga.min().item())
+        ties += [g for g in ga[differ].tolist() if g <= ROUTE_TIE]
+        faults += [g for g in ga[differ].tolist() if g > ROUTE_TIE]
+    if faults:
+        fail(f"{name}: expert choices differ between the card and the CPU at gaps {faults[:4]} "
+             f"(a tie is at most {ROUTE_TIE:g})")
+    drops = sum(d for *_, d in card.calls)
+    report = (f"routes {tokens} equal, min gap {min_gap:.1e}, {drops} drops"
+              + (f", {len(ties)} TIE(S) at gap {max(ties):.1e}" if ties else ""))
+    return report, bool(ties)
+
+
+def _maybe_routes(cfg):
+    return Routes(cfg) if cfg.num_experts else contextlib.nullcontext()
+
+
+def model_check(dev, cfg, B: int, S: int, pos: list[int], max_len: int) -> str:
+    """Smoke width in float32, card against CPU on one set of seeded weights
+    (QKV biases drawn, not zero, so their path computes): one prefill and
+    one decode step at per-row positions ``pos``. Returns the arch's part of
+    the phase's line: the worst error over the logits and every cache leaf,
+    the launches per prefill, and for MoE the expert choices and drops."""
+    cfg = cfg.replace(dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    params = M.init_params(cfg, gen)
+    for name in ("bq", "bk", "bv"):
+        if name in params["layers"]:
+            params["layers"][name] = 0.5 * torch.randn(params["layers"][name].shape,
+                                                       generator=gen)
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
     nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)))
-    res, counts = {}, {}
+    res, counts, routes = {}, {}, {}
     for device in ("cpu", dev):
         p = to_device(params, device)
-        with torch.inference_mode():
+        with torch.inference_mode(), _maybe_routes(cfg) as r:
             reset_counts()
             logits, cache = M.prefill(p, cfg, {"tokens": tokens.to(device)}, max_len)
             counts[str(device)] = read_counts()
             dlogits, cache = M.decode_step(p, cfg, cache, nxt.to(device),
                                            torch.tensor(pos, device=device))
+        routes[str(device)] = r
         res[str(device)] = {"prefill logits": logits.cpu(), "decode logits": dlogits.cpu(),
                             **{f"cache {k}": t.cpu() for k, t in leaves(cache["layers"])}}
     cpu, card = res["cpu"], res[str(dev)]
-    errs = {k: (card[k] - cpu[k]).abs().max().item() for k in cpu}
-    worst = max(errs, key=errs.get)
+    worst = max((card[k] - cpu[k]).abs().max().item() for k in cpu)
     launches, expect = counts[str(dev)], launches_per_prefill(cfg)
-    log(f"[model] {cfg.name} f32 card vs CPU, prompt {S} x {B} rows, decode at "
-        f"pos {pos}: prefill logits err {errs['prefill logits']:.3e}, decode logits "
-        f"err {errs['decode logits']:.3e}, {len(errs) - 2} cache leaves, worst "
-        f"{worst} {errs[worst]:.3e} (atol=rtol=1e-3); launches per prefill "
-        f"{counts_str(launches)} (expected {counts_str(expect)})")
-    if not all(torch.allclose(card[k], cpu[k], **MODEL_TOL) for k in cpu):
+    part = f"{cfg.name} {worst:.1e} ({len(cpu) - 2} leaves, {counts_str(launches)})"
+    tie = False
+    if cfg.num_experts:
+        report, tie = compare_routes(cfg.name, routes["cpu"], routes[str(dev)])
+        if sum(d for *_, d in routes["cpu"].calls) == 0:
+            fail(f"{cfg.name}: the prompt of {S} dropped no token; the check needs drops")
+        part += f" [{report}]"
+    if not tie and not all(torch.allclose(card[k], cpu[k], **MODEL_TOL) for k in cpu):
+        bad = {k: (card[k] - cpu[k]).abs().max().item() for k in cpu
+               if not torch.allclose(card[k], cpu[k], **MODEL_TOL)}
+        log(f"[model] {cfg.name} serving, card vs CPU: {bad} MISMATCH")
         fail(f"{cfg.name} on the card disagrees with the CPU")
     if counts["cpu"] != NO_LAUNCHES:
         fail(f"the CPU path launched kernels: {counts['cpu']}")
     if launches != expect:
         fail(f"{cfg.name} prefill launched {launches}, expected {expect}")
+    return part
 
 
-def train_check(dev, arch: str, steps: int) -> None:
+def train_check(dev, arch: str, steps: int) -> str:
     """``arch``'s smoke config in float32, card against CPU from one set of
-    seeded params: the loss and every gradient leaf of one step, then the
-    loss and grad_norm of ``steps`` steps through make_train_step, with the
-    kernel launches per step."""
+    seeded params: the loss (with the MoE aux loss) and every gradient leaf
+    of one step, then the loss and grad_norm of ``steps`` steps through
+    make_train_step, with the kernel launches per step. Returns the arch's
+    part of the phase's line."""
     cfg = configs.get_smoke(arch).replace(dtype="float32")
     # ragged against mamba2-smoke's chunk of 32; past recurrentgemma-smoke's window of 32
     batches = [make_batch(cfg, 2, 100, seed=0, step=i) for i in range(steps)]
-    res, counts = {}, {}
+    res, counts, routes = {}, {}, {}
     for device in ("cpu", dev):
         # the same seeded draw on the CPU for each device (a train step
         # updates its state in place)
@@ -1101,48 +1201,85 @@ def train_check(dev, arch: str, steps: int) -> None:
         for t in tensors:
             t.requires_grad_(True)
         reset_counts()
-        loss = M.loss_fn(params, cfg, to_device(batches[0], device))
-        grads = torch.autograd.grad(loss, tensors)
-        one = {"loss": loss.detach().cpu(),
-               **{f"grad {n}": g.cpu() for n, g in zip(names, grads)}}
-        step = make_train_step(cfg, opt=OptConfig(warmup_steps=2))
-        curve, per_step = [], []
-        for b in batches:
-            reset_counts()
-            state, metrics = step(state, to_device(b, device))
-            curve.append([metrics["loss"].item(), metrics["grad_norm"].item()])
-            per_step.append(read_counts())
+        with _maybe_routes(cfg) as r:
+            loss = M.loss_fn(params, cfg, to_device(batches[0], device))
+            grads = torch.autograd.grad(loss, tensors)
+            routes[str(device)] = r
+            one = {"loss": loss.detach().cpu(),
+                   **{f"grad {n}": g.cpu() for n, g in zip(names, grads)}}
+            step = make_train_step(cfg, opt=OptConfig(warmup_steps=2))
+            curve, per_step = [], []
+            for b in batches:
+                reset_counts()
+                state, metrics = step(state, to_device(b, device))
+                curve.append([metrics["loss"].item(), metrics["grad_norm"].item()])
+                per_step.append(read_counts())
         res[str(device)] = (one, torch.tensor(curve))
         counts[str(device)] = per_step
     (cpu_one, cpu_curve), (card_one, card_curve) = res["cpu"], res[str(dev)]
     errs = {k: (card_one[k] - cpu_one[k]).abs().max().item() for k in cpu_one}
-    worst = max(errs, key=errs.get)
+    worst = max((k for k in errs if k != "loss"), key=errs.get)
     expect = launches_per_train_step(cfg)
-    log(f"[model] {cfg.name} training f32 card vs CPU, batch 2 x 100: loss "
-        f"{cpu_one['loss'].item():.6f} err {errs['loss']:.3e}, {len(errs) - 1} grad "
-        f"leaves, worst {worst} {errs[worst]:.3e}; {steps} steps' loss and grad_norm "
-        f"worst err {(card_curve - cpu_curve).abs().max().item():.3e} (atol=rtol=1e-3); "
-        f"launches per step {counts_str(counts[str(dev)][0])}")
-    if not all(torch.allclose(card_one[k], cpu_one[k], **MODEL_TOL) for k in cpu_one):
+    part = (f"{cfg.name} loss {cpu_one['loss'].item():.6f} err {errs['loss']:.1e}, "
+            f"{len(errs) - 1} grads worst {worst[5:]} {errs[worst]:.1e}, {steps}-step curve "
+            f"{(card_curve - cpu_curve).abs().max().item():.1e} "
+            f"({counts_str(counts[str(dev)][0])})")
+    tie = False
+    if cfg.num_experts:
+        report, tie = compare_routes(cfg.name, routes["cpu"], routes[str(dev)])
+        part += f" [{report}]"
+    if not tie and not all(torch.allclose(card_one[k], cpu_one[k], **MODEL_TOL) for k in cpu_one):
+        log(f"[model] {cfg.name} training, card vs CPU: worst {worst} {errs[worst]:.3e} MISMATCH")
         fail(f"{cfg.name} training on the card disagrees with the CPU")
-    if not torch.allclose(card_curve, cpu_curve, **MODEL_TOL):
+    if not tie and not torch.allclose(card_curve, cpu_curve, **MODEL_TOL):
         fail(f"{cfg.name} loss or grad_norm curve on the card disagrees with the CPU")
     if any(c != NO_LAUNCHES for c in counts["cpu"]):
         fail(f"the CPU path launched kernels: {counts['cpu']}")
     if any(c != expect for c in counts[str(dev)]):
         fail(f"{cfg.name} train steps launched {counts[str(dev)]}, expected {expect} each")
+    return part
+
+
+# Phase 4's serving checks: (config, B, S, decode positions, max_len).
+# granite-smoke's and recurrentgemma-smoke's prompts are longer than the
+# window of 32 (the local-attention and mixtral-smoke's swa rings roll);
+# mamba2-smoke's 45 is ragged against its chunk of 32 (the plain scan pads,
+# carries its state over two chunks and returns it); mistral-nemo-smoke
+# with head_dim 32 has H·D = 128 against a width of 64, as the full config
+# has 32 x 128 against 5120 (its smoke's 16 gives H·D = d_model); llama3-
+# smoke's head_dim 8 runs the kernel at width 16. MoE prompts of 45 drop
+# tokens past the capacity (28 for mixtral-smoke, 14 for moonshot-smoke);
+# decode at B = 2 takes mixtral-smoke's dense path (B·k = 4 = E) and
+# moonshot-smoke's gather path (4 < 8).
+MODEL_CHECKS = [
+    (configs.get_smoke("granite-8b"), 2, 37, [37, 30], 64),
+    (configs.get_smoke("recurrentgemma-2b"), 2, 45, [45, 33], 64),
+    (configs.get_smoke("mamba2-130m"), 2, 45, [45, 40], 64),
+    (configs.get_smoke("qwen2.5-14b"), 2, 37, [37, 30], 64),
+    (configs.get_smoke("mistral-nemo-12b").replace(head_dim=32), 2, 37, [37, 30], 64),
+    (configs.get_smoke("llama3-405b"), 2, 45, [45, 33], 64),
+    (configs.get_smoke("mixtral-8x22b"), 2, 45, [45, 33], 64),
+    (configs.get_smoke("moonshot-v1-16b-a3b"), 2, 45, [45, 33], 64),
+]
+# Training checks, card against CPU. tiny-smoke and granite-smoke differ
+# only in name and dtype, and both run here in f32: the same computation
+# (they printed the same loss and errors), so tiny-smoke stands for the
+# pair (tiny is the dense arch that trains at full width).
+TRAIN_CHECKS = [("mamba2-130m", 3), ("tiny", 2), ("recurrentgemma-2b", 2),
+                ("qwen2.5-14b", 2), ("mixtral-8x22b", 2)]
 
 
 def phase_model(dev) -> None:
-    model_check(dev, "granite-8b", B=2, S=37, pos=[37, 30], max_len=64)
-    # longer than the smoke window of 32: the local-attention ring rolls
-    model_check(dev, "recurrentgemma-2b", B=2, S=45, pos=[45, 33], max_len=64)
-    # ragged against mamba2-smoke's chunk of 32: the plain scan pads, carries
-    # its state over two chunks and returns it
-    model_check(dev, "mamba2-130m", B=2, S=45, pos=[45, 40], max_len=64)
-    train_check(dev, "mamba2-130m", steps=3)
-    for arch in ("tiny", "granite-8b", "recurrentgemma-2b"):
-        train_check(dev, arch, steps=2)
+    parts = [model_check(dev, *check) for check in MODEL_CHECKS]
+    log("[model] serving f32 card vs CPU, worst |err| over prefill and decode logits and "
+        "every cache leaf (atol=rtol=1e-3), launches per prefill: " + "; ".join(parts))
+    parts = [train_check(dev, arch, steps) for arch, steps in TRAIN_CHECKS]
+    log("[model] training f32 card vs CPU, batch 2 x 100, loss and every grad leaf of one "
+        "step, then the steps' loss and grad_norm (atol=rtol=1e-3), launches per step: "
+        + "; ".join(parts))
+
+
+_SCHEDULES: dict = {}       # prompt range -> the schedule last printed for it
 
 
 def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) -> dict:
@@ -1197,10 +1334,15 @@ def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) 
     tokens = sum(len(r.generated) for r in done)
     n_prefill, n_steps = len(stats["prefill_s"]), engine.steps_run - steps0
     peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] {arch} {cfg.num_layers} x {cfg.d_model}, {n_params / 1e9:.3f} B "
+    schedule = (f"prompts {sorted(int(n) for n in lengths)}, max_new "
+                f"{[int(n) for n in max_new]}")
+    active = (f" ({cfg.active_param_count() / 1e9:.3f} B active: top-{cfg.num_experts_per_tok} "
+              f"of {cfg.num_experts} experts)" if cfg.num_experts else "")
+    log(f"[serve] {arch} {cfg.num_layers} x {cfg.d_model}, {n_params / 1e9:.3f} B{active} "
         f"{cfg.dtype} params made on the card in {setup_s:.3f} s (set-up); {len(done)} "
-        f"requests, prompts {sorted(int(n) for n in lengths)}, max_new "
-        f"{[int(n) for n in max_new]}")
+        f"requests, " + ("the same schedule" if schedule == _SCHEDULES.get(prompt_range)
+                         else schedule))
+    _SCHEDULES[prompt_range] = schedule
     log(f"[serve] {arch}: wall {wall:.4f} s: {n_prefill} prefills, mean "
         f"{1e3 * statistics.mean(stats['prefill_s']):.3f} ms per request; "
         f"{n_steps} decode steps (batch 4), mean "
@@ -1278,7 +1420,7 @@ def phase_profile(serve: dict) -> None:
     untraced_wall_us = serve["wall_s"] * 1e6
     port_us = {name: sum(e.self_device_time_total for e in kernels if re.search(pat, e.key))
                for name, pat in (("flash", r"flash_fwd\w*_kernel"), ("lru", LRU_KERNELS))}
-    log(f"[profile] {arch}: {len(rids)} requests, {steps} decode steps: kernels busy "
+    log(f"[profile] {arch}: kernels busy "
         f"{busy_us / 1e3:.3f} ms; traced wall {wall_us / 1e3:.3f} ms (device idle "
         f"{1 - busy_us / wall_us:.1%}); untraced wall (phase 5) "
         f"{untraced_wall_us / 1e3:.3f} ms (device idle "
@@ -1293,9 +1435,8 @@ def phase_profile(serve: dict) -> None:
                 f"{e.key[6:]} x{e.count} {untraced_us[e.key] / 1e3:.3f} / "
                 f"{e.cpu_time_total / e.count / 1e3:.3f} / {dev_us / 1e3:.3f}, "
                 f"{1 - dev_us / untraced_us[e.key]:.1%}")
-    log(f"[profile] {arch} per call, ms untraced (phase 5) / traced host / kernels, "
-        f"device idle share of an untraced call: " + "; ".join(per_call))
-    log(f"[profile] {arch} top kernels: " + top_kernels(kernels, busy_us / 1e3)
+    log(f"[profile] {arch} per call, ms untraced / traced host / kernels, idle: "
+        + "; ".join(per_call) + "; top kernels: " + top_kernels(kernels, busy_us / 1e3)
         + f" [at {time.perf_counter() - T_START:.1f} s]")
     serve["profile"] = {"busy_ms": busy_us / 1e3, "idle": 1 - busy_us / untraced_wall_us,
                         "flash_ms": port_us["flash"] / 1e3, "lru_ms": port_us["lru"] / 1e3}
@@ -1372,9 +1513,9 @@ def phase_train(dev, arch: str) -> dict:
     expect = {k: n * TRAIN["steps"]
               for k, n in launches_per_train_step(cfg, run["microbatches"]).items()}
     log(f"[train] {arch} {cfg.num_layers} x {cfg.d_model}, {cfg.param_count():,} params "
-        f"(f32 masters and moments), activations {cfg.dtype}, {TRAIN['steps']} steps of "
-        f"{run['global_batch']} x {TRAIN['seq_len']} tokens in {run['microbatches']} "
-        f"microbatch(es): wall {wall:.4f} s (init included); step 0 "
+        f"(f32 masters, moments), {cfg.dtype} activations, {TRAIN['steps']} steps of "
+        f"{run['global_batch']} x {TRAIN['seq_len']} in {run['microbatches']} "
+        f"microbatch(es): wall {wall:.4f} s with init; step 0 "
         f"{1e3 * step_s[0]:.3f} ms; steps 1-{len(steady)} mean "
         f"{1e3 * statistics.mean(steady):.3f} ms, median "
         f"{1e3 * statistics.median(steady):.3f} ms per step, "
@@ -1461,8 +1602,8 @@ def phase_train_profile(dev, train: dict) -> None:
         f"{TRAIN['seq_len']}): kernels busy {busy_ms:.3f} ms; traced wall {wall_ms:.3f} ms "
         f"(device idle {1 - busy_ms / wall_ms:.1%}); untraced mean step (phase 7) "
         f"{train['step_ms']:.3f} ms (device idle {1 - busy_ms / train['step_ms']:.1%}); "
-        + ", ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%})" for k, v in used.items()))
-    log(f"[profile] {arch} train top kernels: " + top_kernels(kernels, busy_ms)
+        + ", ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%})" for k, v in used.items())
+        + "; top kernels: " + top_kernels(kernels, busy_ms)
         + f" [at {time.perf_counter() - T_START:.1f} s]")
     kinds = set(tfm.layer_kinds(cfg))
     need = {"ssm": ("ssd_fwd", "ssd_rule"), "attn": ("flash_fwd", "flash_rule"),
@@ -1637,6 +1778,17 @@ def phase_runner(dev) -> dict:
             "card": nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")}
 
 
+def significant(x, digits: int = 6):
+    """``x`` with every float to ``digits`` significant digits (a time to
+    0.1 ns at most), which keeps the kernels line short; ints, strings and
+    None unchanged."""
+    if isinstance(x, dict):
+        return {k: significant(v, digits) for k, v in x.items()}
+    if isinstance(x, list):
+        return [significant(v, digits) for v in x]
+    return float(f"{x:.{digits}g}") if isinstance(x, float) else x
+
+
 def _measured(x):
     """``x`` without the old design's timings that were not measured (no
     --old-src): keys ``old_*`` whose value is None, at any depth."""
@@ -1650,7 +1802,8 @@ def _measured(x):
 
 def record(name: str, source: str, replaces: str, rec: dict, paths: dict, **extra) -> dict:
     """One entry of the kernels line: ``launches`` sums the main paths' runs
-    (``paths``: {path: launches}), the numbers are ``rec``'s (phase 3)."""
+    (``paths``: {path: launches}), the numbers are ``rec``'s (phase 3);
+    ``timings`` in ``extra`` holds the other shapes phase 3 timed."""
     return _measured({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                       "launches": sum(paths.values()), "max_abs_err": rec["max_abs_err"],
                       "ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -1668,7 +1821,8 @@ def dynamic_smem() -> dict:
     ssd.repro_ssd_bf16_smem_bytes.argtypes = [ctypes.c_int]
     ssd.repro_ssd_bf16_smem_bytes.restype = ctypes.c_longlong
     ssd.repro_ssd_bf16_state_smem_bytes.restype = ctypes.c_longlong
-    return {"flash_fwd_tc_kernel<128>": flash(128, 1), "flash_fwd_tc_kernel<256>": flash(256, 1),
+    return {"flash_fwd_tc_kernel<128,128>": flash(128, 1),
+            "flash_fwd_tc_kernel<256,256>": flash(256, 1),
             "ssd_chunk_tc_kernel": ssd.repro_ssd_bf16_smem_bytes(256),
             "ssd_state_tc_kernel": ssd.repro_ssd_bf16_state_smem_bytes()}
 
@@ -1693,7 +1847,8 @@ def summary(built: dict, recs: dict, serves: dict, trains: list, runner: dict) -
     rows += [("lru_scan", t) for t in recs["lru"].values()] + [("ssd_scan", recs["ssd"])]
     log("[summary] bf16 kernel ms (old design), share of the bound; plain, library and "
         "bound ms in the kernels line: " + "; ".join(
-            f"{name} {t['shape'][5:]} {t['ms']:.4f}{_old(t['old_ms'])}, "
+            f"{name} {t['shape'][5:].replace('causal B=1 ', '').replace(' window=None', '')} "
+            f"{t['ms']:.4f}{_old(t['old_ms'])}, "
             f"{t['bound_ms'] / t['ms']:.1%}" for name, t in rows))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for S, t in recs["lru"].items():
@@ -1751,7 +1906,12 @@ def main() -> int:
                                                      prompt_range=(100, 2500)),
               # request 0 at 2048 tokens: the prefill carries state over 8 chunks
               "mamba2-130m": serve_and_profile(dev, "mamba2-130m", max_len=4096,
-                                               prompt_range=(100, 2048))}
+                                               prompt_range=(100, 2048)),
+              # granite-8b's schedule: 48 flash launches (D=128) a prefill each
+              "moonshot-v1-16b-a3b": serve_and_profile(dev, "moonshot-v1-16b-a3b",
+                                                       max_len=1024, prompt_range=(100, 340)),
+              "qwen2.5-14b": serve_and_profile(dev, "qwen2.5-14b", max_len=1024,
+                                               prompt_range=(100, 340))}
     log("[serve] card after each run: "
         + "; ".join(f"{arch} {r['card']}" for arch, r in serves.items()))
     trains = [train_and_profile(dev, arch) for arch in TRAIN_RUNS]
@@ -1773,12 +1933,13 @@ def main() -> int:
 
     kernels = [
         record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention/kernel.py:79", recs["flash"][(340, 128)],
-               paths("flash_attention"), timings=list(recs["flash"].values()),
-               gradient_rule=recs["flash_grad"]),
+               "src/repro/kernels/flash_attention/kernel.py:79", recs["flash"][(340, 32, 128)],
+               paths("flash_attention"), gradient_rule=recs["flash_grad"],
+               timings=[t for k, t in recs["flash"].items() if k != (340, 32, 128)]),
         record("lru_scan", "src/repro_torch/csrc/lru_scan.cu",
                "src/repro/kernels/rglru/kernel.py:49", recs["lru"][2500], paths("lru_scan"),
-               timings=list(recs["lru"].values()), gradient_rule=recs["lru_grad"]),
+               timings=[t for S, t in recs["lru"].items() if S != 2500],
+               gradient_rule=recs["lru_grad"]),
         record("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
                "src/repro/kernels/ssd/kernel.py:75", recs["ssd"], paths("ssd_scan"),
                flops=recs["ssd"]["flops"], bytes=recs["ssd"]["bytes"],
@@ -1787,7 +1948,7 @@ def main() -> int:
     summary(built, recs, serves, trains, runner)
     log(f"[time] total {time.perf_counter() - T_START:.1f} s")
     log(nvidia_smi("name,power.limit"))
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": significant(kernels)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

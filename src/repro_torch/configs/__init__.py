@@ -7,11 +7,16 @@ family the port runs are listed; the others wait for their ROADMAP item.
 
 from __future__ import annotations
 
-from repro_torch.configs import granite_8b, mamba2_130m, recurrentgemma_2b, tiny
+from repro_torch.configs import (granite_8b, llama3_405b, mamba2_130m, mistral_nemo_12b,
+                                 mixtral_8x22b, moonshot_v1_16b_a3b, qwen2_5_14b,
+                                 recurrentgemma_2b, tiny)
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = {"granite-8b": granite_8b, "mamba2-130m": mamba2_130m,
-            "recurrentgemma-2b": recurrentgemma_2b, "tiny": tiny}
+_MODULES = {"granite-8b": granite_8b, "llama3-405b": llama3_405b,
+            "mamba2-130m": mamba2_130m, "mistral-nemo-12b": mistral_nemo_12b,
+            "mixtral-8x22b": mixtral_8x22b, "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
+            "qwen2.5-14b": qwen2_5_14b, "recurrentgemma-2b": recurrentgemma_2b,
+            "tiny": tiny}
 ARCHS = sorted(_MODULES)
 
 

@@ -1,11 +1,11 @@
 """Model configuration: the port's own copy of ``repro.configs.base``.
 
-The fields the ported dense, hybrid and ssm families read, with the
+The fields the ported dense, moe, hybrid and ssm families read, with the
 reference ``ModelConfig``'s names and defaults, so a config maps one to one
-between the two packages. The fields of the families not ported yet (MoE,
-encoder-decoder, frontends) come with those families. The
-parameter count is taken over the port's own ``ParamSpec`` tree (the
-reference counts over its JAX one).
+between the two packages. The fields of the families not ported yet
+(encoder-decoder, frontends) come with those families. The parameter
+counts are taken over the port's own ``ParamSpec`` tree (the reference
+counts over its JAX one).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ __all__ = ["ModelConfig"]
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | hybrid | ssm (the families ported so far)
+    family: str                     # dense | moe | hybrid | ssm (the families ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -33,6 +33,13 @@ class ModelConfig:
     attention: str = "full"         # full | swa | none
     window: int = 4096              # sliding window (attention == "swa" / local)
     qkv_bias: bool = False
+
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
 
     # SSM (mamba2 / SSD)
     ssm_state: int = 0
@@ -64,7 +71,22 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
-    def param_count(self) -> int:
+    def _flat_param_specs(self):
         from repro_torch.models.layers import flatten_specs
         from repro_torch.models.model import param_shapes
-        return sum(math.prod(s.shape) for _, s in flatten_specs(param_shapes(self)))
+        return flatten_specs(param_shapes(self))
+
+    def param_count(self) -> int:
+        return sum(math.prod(s.shape) for _, s in self._flat_param_specs())
+
+    def active_param_count(self) -> int:
+        """MoE: params touched per token (top-k of E experts)."""
+        if self.num_experts == 0:
+            return self.param_count()
+        total = 0
+        for path, spec in self._flat_param_specs():
+            n = math.prod(spec.shape)
+            if path[-1].startswith("we_"):
+                n = n * self.num_experts_per_tok // self.num_experts
+            total += n
+        return total

@@ -1,0 +1,14 @@
+"""mistral-nemo-12b — dense GQA, 128k ctx, head_dim 128
+[hf:mistralai/Mistral-Nemo-Base-2407]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mistral-nemo-12b", family="dense",
+    num_layers=40, d_model=5120, num_heads=32, num_kv_heads=8,
+    d_ff=14336, vocab_size=131072, head_dim=128, rope_theta=1e6,
+)
+
+SMOKE = CONFIG.replace(
+    name="mistral-nemo-smoke", num_layers=2, d_model=64, num_heads=4,
+    num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
+)

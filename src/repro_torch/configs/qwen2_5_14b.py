@@ -1,0 +1,13 @@
+"""qwen2.5-14b — dense GQA with QKV bias [hf:Qwen/Qwen2.5]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-14b", family="dense",
+    num_layers=48, d_model=5120, num_heads=40, num_kv_heads=8,
+    d_ff=13824, vocab_size=152064, qkv_bias=True, rope_theta=1e6,
+)
+
+SMOKE = CONFIG.replace(
+    name="qwen2.5-smoke", num_layers=2, d_model=64, num_heads=4,
+    num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
+)

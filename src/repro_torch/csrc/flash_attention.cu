@@ -59,7 +59,15 @@
 // bf16 tensor-core rate (35 us at S=2048). mma.sync reaches only part of
 // that rate; wgmma with TMA-fed tiles is the next step.
 //
-// Accepts float32 and bfloat16, D in {16, 32, 64, 128, 256}, any Sq, Sk >= 1,
+// Head dim 8 (llama3-smoke) runs as D = 16 with zero-filled columns: each
+// kernel takes the compute width D and the tensors' own width DL <= D as
+// template arguments, reads rows of DL elements (DL-strided) and zero-fills
+// columns DL..D-1 of its Q, K and V tiles in shared memory, so Q K^T (over
+// the 16 of a bf16 mma k-step) and P V are those of the true D; only the
+// first DL output columns are written. The scale stays the caller's (the
+// true D's ^-0.5).
+//
+// Accepts float32 and bfloat16, D in {8, 16, 32, 64, 128, 256}, any Sq, Sk >= 1,
 // causal or not, optional window (window <= 0 means none). The Python
 // wrapper validates shapes, dtypes and contiguity before calling.
 
@@ -93,7 +101,7 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * PS);
 }
 
-template <typename T, int D>
+template <typename T, int D, int DL>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -115,19 +123,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid >> 4;         // row group: rows ty*RPT .. ty*RPT+RPT-1
   const int tx = tid & 15;         // lane within the half-warp owning them
 
-  // (B, S, H, D) layout: consecutive sequence positions are H*D (or K*D)
-  // elements apart, each row of D elements is contiguous.
-  const long q_stride = (long)H * D;
-  const long kv_stride = (long)K * D;
-  const T* qb = q + ((long)b * Sq * H + h) * D;
-  const T* kb = k + ((long)b * Sk * K + kh) * D;
-  const T* vb = v + ((long)b * Sk * K + kh) * D;
-  T* ob = o + ((long)b * Sq * H + h) * D;
+  // (B, S, H, DL) layout: consecutive sequence positions are H*DL (or
+  // K*DL) elements apart, each row of DL elements is contiguous.
+  const long q_stride = (long)H * DL;
+  const long kv_stride = (long)K * DL;
+  const T* qb = q + ((long)b * Sq * H + h) * DL;
+  const T* kb = k + ((long)b * Sk * K + kh) * DL;
+  const T* vb = v + ((long)b * Sk * K + kh) * DL;
+  T* ob = o + ((long)b * Sq * H + h) * DL;
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D;
     const int qp = q0 + r;
-    sQ[r * DS + c] = qp < Sq ? to_f32(qb[qp * q_stride + c]) : 0.f;
+    sQ[r * DS + c] = qp < Sq && (DL == D || c < DL) ? to_f32(qb[qp * q_stride + c]) : 0.f;
   }
 
   // kv range this q tile can see: causal stops at its last row, a window
@@ -152,7 +160,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, c = i % D;
       const int kp = k0 + r;
-      const bool in = kp < Sk;
+      const bool in = kp < Sk && (DL == D || c < DL);
       sK[r * DS + c] = in ? to_f32(kb[kp * kv_stride + c]) : 0.f;
       sV[r * D + c] = in ? to_f32(vb[kp * kv_stride + c]) : 0.f;
     }
@@ -236,7 +244,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = l_i[i] > 0.f ? 1.f / l_i[i] : 0.f;
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
-      ob[qp * q_stride + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+      if (DL == D || tx + 16 * j < DL)
+        ob[qp * q_stride + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
   }
 }
 
@@ -257,7 +266,7 @@ template <int D> struct TcTile {
       sizeof(__nv_bfloat16) * (size_t)(TC_BQ * STR + 4 * BK * STR);
 };
 
-template <int D>
+template <int D, int DL>
 __global__ void __launch_bounds__(TC_NT, 2)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -289,12 +298,12 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, tq = lane & 3;
   const int row0 = warp * 16;
 
-  const long q_stride = (long)H * D;
-  const long kv_stride = (long)K * D;
-  const __nv_bfloat16* qb = q + ((long)b * Sq * H + h) * D;
-  const __nv_bfloat16* kb = k + ((long)b * Sk * K + kh) * D;
-  const __nv_bfloat16* vb = v + ((long)b * Sk * K + kh) * D;
-  __nv_bfloat16* ob = o + ((long)b * Sq * H + h) * D;
+  const long q_stride = (long)H * DL;
+  const long kv_stride = (long)K * DL;
+  const __nv_bfloat16* qb = q + ((long)b * Sq * H + h) * DL;
+  const __nv_bfloat16* kb = k + ((long)b * Sk * K + kh) * DL;
+  const __nv_bfloat16* vb = v + ((long)b * Sk * K + kh) * DL;
+  __nv_bfloat16* ob = o + ((long)b * Sq * H + h) * DL;
 
   int kv_end = Sk;
   if (causal) kv_end = min(Sk, q0 + TC_BQ);
@@ -303,16 +312,17 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   kv_start = (kv_start / BK) * BK;
   const int ntiles = kv_end > kv_start ? (kv_end - kv_start + BK - 1) / BK : 0;
 
+  // 16-byte chunks of 8 columns; the chunks at columns >= DL are zero-filled
   for (int c = tid; c < TC_BQ * CPR; c += TC_NT) {
     const int r = c / CPR, col = (c % CPR) * 8, qp = q0 + r;
-    const bool in = qp < Sq;
+    const bool in = qp < Sq && (DL == D || col < DL);
     cp_async16(smem_addr(sQ + r * STR + col), in ? qb + qp * q_stride + col : qb, in);
   }
   auto load_kv = [&](int t, int stage) {
     const int k0 = kv_start + t * BK;
     for (int c = tid; c < BK * CPR; c += TC_NT) {
       const int r = c / CPR, col = (c % CPR) * 8, kp = k0 + r;
-      const bool in = kp < Sk;
+      const bool in = kp < Sk && (DL == D || col < DL);
       const long off = in ? kp * kv_stride + col : 0;
       cp_async16(smem_addr(sK + (stage * BK + r) * STR + col), kb + off, in);
       cp_async16(smem_addr(sV + (stage * BK + r) * STR + col), vb + off, in);
@@ -460,22 +470,23 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* orow = ob + qp * q_stride + 2 * tq;
 #pragma unroll
     for (int j = 0; j < NDT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+      if (DL == D || j * 8 < DL)
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+            __floats2bfloat162_rn(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
   }
 }
 
-template <int D>
+template <int D, int DL>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B,
                       int Sq, int Sk, int H, int K, int causal, int window,
                       float scale, cudaStream_t stream) {
   constexpr size_t smem = TcTile<D>::SMEM;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_tc_kernel<D, DL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
   const long blocks = (long)((Sq + TC_BQ - 1) / TC_BQ) * H * B;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
-  flash_fwd_tc_kernel<D><<<(unsigned)blocks, TC_NT, smem, stream>>>(
+  flash_fwd_tc_kernel<D, DL><<<(unsigned)blocks, TC_NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), B, Sq,
       Sk, H, K, causal, window, scale * LOG2E);
@@ -483,17 +494,17 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
 }
 
 // ---------------------------------------------------------------- f32 route
-template <typename T, int D>
+template <typename T, int D, int DL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Sq, int Sk, int H, int K, int causal, int window,
                    float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, D, DL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<T, D, DL><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, K, causal,
       window, scale);
@@ -504,20 +515,22 @@ template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        int B, int Sq, int Sk, int H, int K, int D, int causal,
                        int window, float scale, cudaStream_t stream) {
-  // bf16 goes to the tensor-core kernel, f32 to the FMA kernel.
+  // bf16 goes to the tensor-core kernel, f32 to the FMA kernel; D = 8 runs
+  // at the compute width 16 with zero-filled columns.
   constexpr bool tc = sizeof(T) == 2;
-#define REPRO_FLASH_CASE(DD)                                                      \
+#define REPRO_FLASH_CASE(DD, DC)                                                  \
   case DD:                                                                       \
-    return tc ? launch_tc<DD>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, \
-                              stream)                                            \
-              : launch<float, DD>(q, k, v, o, B, Sq, Sk, H, K, causal, window,   \
-                                  scale, stream);
+    return tc ? launch_tc<DC, DD>(q, k, v, o, B, Sq, Sk, H, K, causal, window,    \
+                                  scale, stream)                                 \
+              : launch<float, DC, DD>(q, k, v, o, B, Sq, Sk, H, K, causal,       \
+                                      window, scale, stream);
   switch (D) {
-    REPRO_FLASH_CASE(16)
-    REPRO_FLASH_CASE(32)
-    REPRO_FLASH_CASE(64)
-    REPRO_FLASH_CASE(128)
-    REPRO_FLASH_CASE(256)
+    REPRO_FLASH_CASE(8, 16)
+    REPRO_FLASH_CASE(16, 16)
+    REPRO_FLASH_CASE(32, 32)
+    REPRO_FLASH_CASE(64, 64)
+    REPRO_FLASH_CASE(128, 128)
+    REPRO_FLASH_CASE(256, 256)
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_FLASH_CASE
@@ -547,6 +560,7 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
 // D in the given dtype; 0 for an unsupported D.
 extern "C" long long repro_flash_attention_smem_bytes(int D, int is_bf16) {
   switch (D) {
+    case 8:  // computed at width 16
     case 16: return is_bf16 ? TcTile<16>::SMEM : smem_bytes<16>();
     case 32: return is_bf16 ? TcTile<32>::SMEM : smem_bytes<32>();
     case 64: return is_bf16 ? TcTile<64>::SMEM : smem_bytes<64>();

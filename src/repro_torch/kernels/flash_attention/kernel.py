@@ -21,7 +21,7 @@ from repro_torch.kernels.build import build_library
 __all__ = ["flash_attention_kernel", "SOURCE", "HEAD_DIMS"]
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)       # 8 runs at width 16, zero-filled
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None

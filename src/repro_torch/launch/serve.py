@@ -5,12 +5,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-2b --full --max-len 4096
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --full
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch moonshot-v1-16b-a3b --full --max-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --full
 
 Runs on the CUDA card by default, with weights made on the card from
 ``--seed`` in the config's dtype (bf16 for the served archs; ``--full`` is
-the published width, otherwise the smoke width). ``--device cpu`` serves on the
-CPU in float32, as the reference launcher does off the accelerator. With no
-card and no ``--device cpu`` it raises.
+the published width, otherwise the smoke width). One card holds
+moonshot-v1-16b-a3b (52.3 GiB of bf16 weights), qwen2.5-14b and
+mistral-nemo-12b at full width; mixtral-8x22b and llama3-405b serve at
+smoke width until the port shards a model (ROADMAP.md item 9).
+``--device cpu`` serves on the CPU in float32, as the reference launcher
+does off the accelerator. With no card and no ``--device cpu`` it raises.
 """
 
 from __future__ import annotations

@@ -10,20 +10,26 @@ params and moments for mamba2-130m and recurrentgemma-2b; tiny is f32):
     PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
         --full --steps 6 --global-batch 4 --seq-len 2048 --microbatches 4
 
-On the CPU, at smoke width in float32, as the reference launcher runs off
-the accelerator:
+On the CPU in float32, as the reference launcher runs off the accelerator
+(tiny, the default arch, at its published width, as the reference trains
+it; every other arch at its smoke width):
 
-    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
-    PYTHONPATH=src python -m repro_torch.launch.train --arch tiny --device cpu \\
-        --steps 6 --global-batch 4 --seq-len 64
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6 \\
+        --global-batch 4 --seq-len 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
+        --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
+        --device cpu --steps 6 --global-batch 4 --seq-len 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b \\
         --device cpu --steps 6 --global-batch 4 --seq-len 64
 
 Runs on the CUDA card by default; with no card and no ``--device cpu`` it
-raises. ``--full`` is the published width, otherwise the smoke width.
+raises. ``--full`` is the published width; without it tiny still trains its
+published config (as in the reference) and every other arch its smoke
+config.
 ``--microbatches`` splits each global batch and averages the gradients.
 Re-running with the same ``--ckpt-dir`` resumes from the latest step. The
-dense, hybrid and ssm families train; the others raise, naming their
+dense, moe, hybrid and ssm families train; the others raise, naming their
 ROADMAP.md item.
 """
 
@@ -40,9 +46,10 @@ from repro_torch.train.optimizer import OptConfig
 def main(argv=None) -> TrainResult:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="mamba2-130m", choices=configs.ARCHS)
+    ap.add_argument("--arch", default="tiny", choices=configs.ARCHS)
     ap.add_argument("--full", action="store_true",
-                    help="full published config; default is the smoke config")
+                    help="full published config; default is the smoke config "
+                         "(tiny always trains its published config)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -56,7 +63,8 @@ def main(argv=None) -> TrainResult:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = configs.get(args.arch) if args.full else configs.get_smoke(args.arch)
+    cfg = (configs.get(args.arch) if (args.full or args.arch == "tiny")
+           else configs.get_smoke(args.arch))
     if device.type == "cpu":
         cfg = cfg.replace(dtype="float32")
     print(f"arch={cfg.name} params={cfg.param_count():,} device={device} "

@@ -1,5 +1,5 @@
 """Model assembly: param shapes, the full-sequence forward and loss
-(training), and the prefill and decode steps (serving), of the dense,
+(training), and the prefill and decode steps (serving), of the dense, moe,
 hybrid and ssm families. Port of ``repro.models.model``.
 
 Parameters and caches keep the reference's layouts, so JAX trees map one to
@@ -67,40 +67,44 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
 
 
 # -------------------------------------------------------------------- trunk
-def _stack_apply(layers_p, x, cfg, kinds) -> torch.Tensor:
-    """Run the layer stack over the full sequence. A stacked (L, ...) leaf is
-    indexed per layer, so its gradient lands in the stacked leaf."""
+def _stack_apply(layers_p, x, cfg, kinds) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the layer stack over the full sequence. Returns (x, aux): the
+    layers' MoE aux losses summed in f32. A stacked (L, ...) leaf is indexed
+    per layer, so its gradient lands in the stacked leaf."""
     stacked = uniform_scan(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(kinds):
         p_i = _layer(layers_p, i) if stacked else layers_p[f"layer_{i}"]
-        x = tfm.block_apply(p_i, x, cfg, kind)
-    return x
+        x, a = tfm.block_apply(p_i, x, cfg, kind)
+        aux = aux + a
+    return x, aux
 
 
-def forward(params, cfg, batch) -> torch.Tensor:
-    """Full-sequence forward. Returns logits (B, S, V) in float32. (The
-    reference also returns the MoE aux loss, 0 for every ported family.)"""
+def forward(params, cfg, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits (B, S, V) float32, aux loss, a
+    0-d float32 tensor: the MoE layers' load-balancing loss, 0 without
+    experts), as the reference's forward does."""
     x = _embed_inputs(params, cfg, batch)
-    x = _stack_apply(params["layers"], x, cfg, tfm.layer_kinds(cfg))
+    x, aux = _stack_apply(params["layers"], x, cfg, tfm.layer_kinds(cfg))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x)
+    return _unembed(params, cfg, x), aux
 
 
 def loss_fn(params, cfg, batch) -> torch.Tensor:
-    """Next-token cross entropy of tokens[:, 1:], in float32: the mean over
-    the B x (S - 1) predictions, or, with ``batch["loss_mask"]`` (B, S), the
-    sum over the predictions whose target is masked in, divided by
-    max(that mask's sum, 1), as the reference does."""
-    logits = forward(params, cfg, batch)
+    """Next-token cross entropy of tokens[:, 1:], in float32, plus the MoE
+    aux loss: the mean over the B x (S - 1) predictions, or, with
+    ``batch["loss_mask"]`` (B, S), the sum over the predictions whose target
+    is masked in, divided by max(that mask's sum, 1), as the reference does."""
+    logits, aux = forward(params, cfg, batch)
     tokens = batch["tokens"]
     preds = logits[:, :tokens.shape[1] - 1]
     nll = F.cross_entropy(preds.reshape(-1, preds.shape[-1]),
                           tokens[:, 1:].reshape(-1).long(), reduction="none")
     mask = batch.get("loss_mask")
     if mask is None:
-        return nll.mean()
+        return nll.mean() + aux
     m = mask[:, 1:].reshape(-1).float()
-    return (nll * m).sum() / m.sum().clamp(min=1.0)
+    return (nll * m).sum() / m.sum().clamp(min=1.0) + aux
 
 
 # -------------------------------------------------------------------- cache

@@ -1,9 +1,10 @@
-"""Block assembly: norm → mixer → residual [→ norm → SwiGLU MLP → residual]
+"""Block assembly: norm → mixer → residual [→ norm → FFN/MoE → residual]
 (port of ``repro.models.transformer``).
 
 Layer kinds ported so far:
-  attn        causal self-attention (full or sliding window per config) + FFN;
-              training forward, prefill and decode
+  attn        causal self-attention (full or sliding window per config) +
+              FFN, or MoE when the config has experts; training forward,
+              prefill and decode
   local_attn  sliding-window attention (hybrid archs) + FFN; training
               forward, prefill and decode
   rglru       RG-LRU recurrent mixer + FFN; training forward, prefill and
@@ -11,9 +12,11 @@ Layer kinds ported so far:
   ssm         Mamba-2 SSD mixer (no FFN — the mamba block subsumes it);
               training forward, prefill and decode
 
-The other kinds of the reference (enc_attn, cross) and MoE / gelu MLPs
-belong to ROADMAP items not done yet; asking for them raises
-``NotImplementedError`` naming the item.
+The full-sequence block returns (x, aux): aux is the MoE layer's
+load-balancing loss, 0 for every other layer; prefill and decode drop it,
+as the reference does. The other kinds of the reference (enc_attn, cross)
+and the gelu MLP belong to ROADMAP items not done yet; asking for them
+raises ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import ParamSpec, rms_norm, swiglu
@@ -30,8 +34,7 @@ __all__ = ["layer_kinds", "mlp_specs", "block_specs", "mlp_apply",
            "block_apply", "block_prefill", "block_decode"]
 
 _ROADMAP = {
-    "vlm": "Queue 1 item 4 (vlm family)", "moe": "Queue 1 item 5 (moe family)",
-    "audio": "Queue 1 item 6 (audio family)",
+    "vlm": "Queue 1 item 4 (vlm family)", "audio": "Queue 1 item 6 (audio family)",
 }
 _KINDS = ("attn", "local_attn", "rglru", "ssm")
 
@@ -47,7 +50,7 @@ def layer_kinds(cfg) -> list[str]:
     if cfg.family == "hybrid":
         pat = list(cfg.block_pattern)
         return [pat[i % len(pat)] for i in range(cfg.num_layers)]
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise _not_ported(f"family {cfg.family!r}",
                           _ROADMAP.get(cfg.family, "Queue 1"))
     return ["attn"] * cfg.num_layers
@@ -74,7 +77,7 @@ def block_specs(cfg, kind: str) -> dict:
     else:
         s.update(attn.attn_specs(cfg))
     s["mlp_norm"] = ParamSpec((D,), ("embed",), init="ones")
-    s.update(mlp_specs(cfg))
+    s.update(moe_mod.moe_specs(cfg) if _is_moe(cfg, kind) else mlp_specs(cfg))
     return s
 
 
@@ -84,9 +87,19 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return h @ p["wo_mlp"].to(x.dtype)
 
 
-def _ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def _is_moe(cfg, kind: str) -> bool:
+    return cfg.num_experts > 0 and kind in ("attn", "local_attn")
+
+
+def _ffn(p: dict, x: torch.Tensor, cfg, kind: str):
+    """Norm → SwiGLU MLP or MoE → residual. Returns (x, aux): the MoE's aux
+    loss as a 0-d f32 tensor, or 0.0 for the MLP (no tensor is made for a
+    value that prefill and decode drop)."""
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + mlp_apply(p, h, cfg)
+    if _is_moe(cfg, kind):
+        out, aux = moe_mod.moe_apply(p, h, cfg)
+        return x + out, aux
+    return x + mlp_apply(p, h, cfg), 0.0
 
 
 def _window_for(cfg, kind: str) -> int | None:
@@ -96,17 +109,17 @@ def _window_for(cfg, kind: str) -> int | None:
 
 
 # ------------------------------------------------------------------- apply
-def block_apply(p: dict, x: torch.Tensor, cfg, kind: str) -> torch.Tensor:
-    """Train/eval full-sequence block (the reference's ``block_apply``, whose
-    aux loss is 0 for every ported kind)."""
+def block_apply(p: dict, x: torch.Tensor, cfg, kind: str):
+    """Train/eval full-sequence block. Returns (x, aux loss): a 0-d f32
+    tensor from an MoE layer, else 0.0."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if kind == "ssm":
-        return x + ssm_mod.ssm_apply(p, h, cfg)
+        return x + ssm_mod.ssm_apply(p, h, cfg), 0.0
     if kind == "rglru":
         x = x + rglru_mod.rglru_apply(p, h, cfg)
     else:
         x = x + attn.attn_apply(p, h, cfg, window=_window_for(cfg, kind))[0]
-    return _ffn(p, x, cfg)
+    return _ffn(p, x, cfg, kind)
 
 
 # ------------------------------------------------------------------ prefill
@@ -120,12 +133,12 @@ def block_prefill(p: dict, x: torch.Tensor, cfg, kind: str, max_len: int):
         return x + out, cache                        # mamba block: no FFN
     if kind == "rglru":
         out, cache = _rglru_prefill(p, h, cfg)
-        return _ffn(p, x + out, cfg), cache
+        return _ffn(p, x + out, cfg, kind)[0], cache
     window = _window_for(cfg, kind)
     out, (k, v) = attn.attn_apply(p, h, cfg, window=window)
     x = x + out
     cache = _kv_to_cache(k, v, max_len if window is None else min(window, max_len))
-    return _ffn(p, x, cfg), cache
+    return _ffn(p, x, cfg, kind)[0], cache
 
 
 def _kv_to_cache(k: torch.Tensor, v: torch.Tensor, slots: int) -> dict:
@@ -183,4 +196,4 @@ def block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     else:
         x = x + attn.attn_decode(p, h, cache["k"], cache["v"], pos, cfg,
                                  window=_window_for(cfg, kind))
-    return _ffn(p, x, cfg)
+    return _ffn(p, x, cfg, kind)[0]

@@ -8,8 +8,9 @@ hosts, as ``examples/cluster_train.py`` runs the reference's: a regular job
 preempts a best-effort training job, which checkpoints and yields; its
 resubmitted clone resumes past step 0 and ends where an uninterrupted run
 ends. Every wait has a deadline, so a hang fails the test instead of
-stalling the suite. The runner's refusal without a card, and an arch the
-port has not ported, close the file."""
+stalling the suite. The MoE smokes as runner jobs beside the reference's
+runner; the runner's refusal without a card, and an arch the port has not
+ported, close the file."""
 
 import json
 import threading
@@ -97,6 +98,24 @@ def test_port_runner_matches_reference_runner(tmp_path, case):
     assert outcomes["port"] == expect
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "moonshot-v1-16b-a3b"])
+def test_runner_trains_moe_smoke_jobs(tmp_path, arch):
+    """The runner resolves the MoE archs (ROADMAP.md item 5) and trains
+    their smoke configs to the end, as the reference's runner does: the same
+    status, final step and completion, finite losses and a checkpoint."""
+    spec = {"kind": "train", "idJob": 5, "arch": arch, "steps": 3, "global_batch": 2,
+            "seq_len": 32, "log_every": 1}
+    outcomes = {}
+    for name, make in (("reference", lambda db, ex: JaxRunner(db, ex)),
+                       ("port", lambda db, ex: ClusterRunner(db, ex, device="cpu"))):
+        ex = Recorder()
+        result = _run(make(StandInDB(), ex), {**spec, "ckpt_dir": str(tmp_path / name)})
+        assert all(np.isfinite(m["loss"]) for m in result.history), name
+        outcomes[name] = (result.status, result.step, ex.calls)
+        assert ckpt.list_steps(str(tmp_path / name)) == [3]
+    assert outcomes["port"] == outcomes["reference"] == ("done", 3, [(5, True, "trained to step 3")])
+
+
 def _final_state(ckpt_dir):
     step = ckpt.latest_step(ckpt_dir)
     with np.load(f"{ckpt_dir}/step_{step:08d}/state.npz") as data:
@@ -178,7 +197,7 @@ def test_runner_without_card_raises(monkeypatch):
 def test_unported_arch_fails_the_job():
     ex = Recorder()
     runner = ClusterRunner(StandInDB(), ex, device="cpu")
-    result = _run(runner, {"kind": "train", "idJob": 3, "arch": "mixtral-8x22b"})
+    result = _run(runner, {"kind": "train", "idJob": 3, "arch": "seamless-m4t-large-v2"})
     assert isinstance(result, NotImplementedError)
     assert [(j, ok) for j, ok, _ in ex.calls] == [(3, False)]
     assert "not ported yet" in ex.calls[0][2]

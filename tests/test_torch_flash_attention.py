@@ -49,6 +49,7 @@ CASES = [
     (1, 200, 200, 4, 2, 16, True, None),     # ragged: 1.56 blocks
     (1, 100, 150, 4, 2, 32, False, None),    # ragged, Sq != Sk, non-causal
     (1, 200, 200, 2, 1, 256, True, 64),      # recurrentgemma heads: MQA, D=256, window
+    (2, 45, 45, 8, 2, 8, True, None),        # llama3-smoke heads: D=8
 ]
 
 
@@ -135,13 +136,15 @@ def test_flash_function_runs_kernel_forward_and_rule_backward(monkeypatch):
         torch.testing.assert_close(ta.grad, tb.grad, rtol=1e-6, atol=1e-6)
 
 
-def _flash_tc_emulation(q, k, v, *, causal, window, bk, round_p=True):
+def _flash_tc_emulation(q, k, v, *, causal, window, bk, round_p=True, scale=None):
     """A plain-torch emulation of the bf16 route of csrc/flash_attention.cu:
     S = Q K^T exact in f32 (products of bf16), online softmax over kv tiles
-    of ``bk`` keys in base 2 (log2 e folded into the scale), P rounded to
-    bf16 for P V while l sums the unrounded P in f32, O in f32 until the
-    single bf16 rounding of the output. ``round_p=False`` keeps P in f32."""
+    of ``bk`` keys in base 2 (log2 e folded into the scale, D^-0.5 unless
+    given), P rounded to bf16 for P V while l sums the unrounded P in f32, O
+    in f32 until the single bf16 rounding of the output. ``round_p=False``
+    keeps P in f32."""
     B, Sq, H, D = q.shape
+    scale = D ** -0.5 if scale is None else scale
     Sk, K = k.shape[1], k.shape[2]
     qf = q.float().transpose(1, 2)                                   # (B,H,Sq,D)
     kf = k.float().repeat_interleave(H // K, dim=2).transpose(1, 2)  # (B,H,Sk,D)
@@ -151,7 +154,7 @@ def _flash_tc_emulation(q, k, v, *, causal, window, bk, round_p=True):
     l = torch.zeros((B, H, Sq))
     o = torch.zeros((B, H, Sq, D))
     for k0 in range(0, Sk, bk):
-        s = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2) * (D ** -0.5 * math.log2(math.e))
+        s = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2) * (scale * math.log2(math.e))
         kpos = torch.arange(k0, min(Sk, k0 + bk))[None, :]
         ok = torch.ones_like(kpos - qpos, dtype=torch.bool)
         if causal:
@@ -191,3 +194,22 @@ def test_tensor_core_emulation_without_rounding_matches_ref_in_f32():
     ref = attention_ref(q, k, v, causal=True, window=96)
     out = _flash_tc_emulation(q, k, v, causal=True, window=96, bk=64, round_p=False)
     torch.testing.assert_close(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_8_as_zero_filled_16_matches_ref(dtype):
+    """Head dim 8 (llama3-smoke) as the kernel runs it: q, k and v
+    zero-filled to 16 columns, the scale kept at 8^-0.5, and the first 8
+    output columns kept. In f32 (P unrounded) it is attention_ref at D = 8
+    to summation order; in bf16 the route's roundings stay inside the
+    card's tolerance."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dt) for a in _inputs(2, 77, 77, 8, 2, 8, seed=8))
+    ref = attention_ref(q, k, v, causal=True, window=None)
+    padded = [torch.nn.functional.pad(t, (0, 8)) for t in (q, k, v)]
+    assert padded[0].shape[-1] == 16
+    out = _flash_tc_emulation(*padded, causal=True, window=None, bk=64,
+                              round_p=dtype == "bfloat16", scale=8 ** -0.5)
+    assert out.dtype == dt and not out[..., 8:].any()
+    torch.testing.assert_close(out[..., :8].float(), ref.float(),
+                               **(TOL if dtype == "float32" else BF16_TOL))

@@ -2,9 +2,10 @@
 with ``repro_torch.interop``): parameter tree shapes and count, prefill
 logits and cache, decode steps at mixed per-row positions, the ring roll of
 a prompt longer than the cache, and the port's own seeded init statistics;
-the first train step of the dense and hybrid families against the JAX train
-step; mamba2's prefill, decode and cache; and the paths not ported yet,
-which raise naming their ROADMAP item."""
+the first train step of the dense, hybrid and moe families against the JAX
+train step; mamba2's prefill, decode and cache; attention whose head_dim is
+not d_model // num_heads; and the paths not ported yet, which raise naming
+their ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -143,7 +144,8 @@ def test_interop_carries_bf16_bits_and_back():
 
 
 def test_other_families_raise_not_implemented():
-    cfg = tconfigs.get_smoke("granite-8b").replace(family="moe")
+    """The moe family is ported (ROADMAP.md item 5); audio is not yet."""
+    cfg = tconfigs.get_smoke("granite-8b").replace(family="audio")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.param_shapes(cfg)
 
@@ -187,12 +189,9 @@ def test_mamba2_serving_raises_not_implemented():
             _close(tc["layers"][name], jc["layers"][name])
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b"])
-def test_make_train_step_refuses_dense_and_hybrid(arch):
-    """The name dates from before ROADMAP.md Queue 1 item 10, when
-    make_train_step refused these families. Now it is that item's check:
-    the port's step trains them, and its first step's loss and grad_norm
-    match the JAX train step's on carried weights and the same tokens."""
+def _first_step_matches_jax(arch):
+    """The port's first train step against the JAX train step's, on carried
+    weights and the same tokens: loss, grad_norm and lr."""
     jcfg = jconfigs.get_smoke(arch).replace(dtype="float32")
     tcfg = tconfigs.get_smoke(arch).replace(dtype="float32")
     jstate = jax_init_state(jcfg, jax.random.PRNGKey(0))
@@ -207,10 +206,60 @@ def test_make_train_step_refuses_dense_and_hybrid(arch):
     assert int(tstate["step"]) == 1
 
 
+@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b"])
+def test_make_train_step_refuses_dense_and_hybrid(arch):
+    """The name dates from before ROADMAP.md Queue 1 item 10, when
+    make_train_step refused these families. Now it is that item's check:
+    the port's step trains them, and its first step's loss and grad_norm
+    match the JAX train step's on carried weights and the same tokens."""
+    _first_step_matches_jax(arch)
+
+
 @pytest.mark.parametrize("family,item", [("moe", "item 5 \\(moe family\\)"),
                                          ("vlm", "item 4 \\(vlm family\\)"),
                                          ("audio", "item 6 \\(audio family\\)")])
 def test_make_train_step_refuses_unported_families(family, item):
+    """The moe case dates from before ROADMAP.md item 5, when the family was
+    refused. Now it is that item's check: the first train step of
+    mixtral-smoke and moonshot-smoke (loss with the aux loss, grad_norm)
+    matches the JAX train step's. vlm and audio still refuse."""
+    if family == "moe":
+        for arch in ("mixtral-8x22b", "moonshot-v1-16b-a3b"):
+            _first_step_matches_jax(arch)
+        return
     cfg = tconfigs.get_smoke("granite-8b").replace(family=family)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         make_train_step(cfg)
+
+
+def test_head_dim_apart_from_width_matches_jax():
+    """Attention whose head_dim is not d_model // num_heads, as in
+    mistral-nemo-12b (32 heads of 128 in a width of 5120): the smoke config
+    with head_dim 32 (4 x 32 = 128 against a width of 64). Prefill logits,
+    the K/V cache, a decode step and the training forward's logits and
+    loss match the JAX package on carried weights."""
+    jcfg = jconfigs.get_smoke("mistral-nemo-12b").replace(dtype="float32", head_dim=32)
+    tcfg = tconfigs.get_smoke("mistral-nemo-12b").replace(dtype="float32", head_dim=32)
+    assert tcfg.num_heads * tcfg.head_dim != tcfg.d_model and tcfg.rope_theta == 1e6
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = interop.to_torch(jparams)
+    assert tparams["layers"]["wq"].shape == (2, 64, 4, 32)
+    B, S, max_len = 2, 19, 32
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, jcfg.vocab_size, (B, S))
+    jl, jc = JM.prefill(jparams, jcfg, {"tokens": jnp.asarray(tokens)}, max_len)
+    with torch.inference_mode():
+        tl, tc = TM.prefill(tparams, tcfg, {"tokens": torch.from_numpy(tokens)}, max_len)
+    _close(tl, jl)
+    _close_cache(tc, jc)
+    nxt, pos = rng.integers(0, jcfg.vocab_size, (B, 1)), np.array([S, S - 5])
+    jl, jc = JM.decode_step(jparams, jcfg, jc, jnp.asarray(nxt), jnp.asarray(pos))
+    with torch.inference_mode():
+        tl, tc = TM.decode_step(tparams, tcfg, tc, torch.from_numpy(nxt), torch.from_numpy(pos))
+    _close(tl, jl)
+    _close_cache(tc, jc)
+    jlogits, _ = JM.forward(jparams, jcfg, {"tokens": jnp.asarray(tokens)})
+    tlogits, _ = TM.forward(tparams, tcfg, {"tokens": torch.from_numpy(tokens)})
+    _close(tlogits.detach(), jlogits)
+    _close(TM.loss_fn(tparams, tcfg, {"tokens": torch.from_numpy(tokens)}).detach(),
+           JM.loss_fn(jparams, jcfg, {"tokens": jnp.asarray(tokens)}))

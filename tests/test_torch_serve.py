@@ -30,13 +30,21 @@ def _requests():
     return reqs
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b", "mamba2-130m"])
+ARCHS = ["granite-8b", "recurrentgemma-2b", "mamba2-130m", "qwen2.5-14b",
+         "mistral-nemo-12b", "llama3-405b", "mixtral-8x22b", "moonshot-v1-16b-a3b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_tokens_match_jax_engine(arch):
-    """Prompts of 3-40 tokens: the longest pass recurrentgemma-smoke's
-    window of 32, so its local-attention rings roll at prefill, and
+    """Prompts of 3-40 tokens: the longest pass recurrentgemma-smoke's and
+    mixtral-smoke's window of 32, so their rings roll at prefill, and
     mamba2-smoke's chunk of 32, so its prefill scan carries state across
     chunks; idle rows' SSM states advance in decode and are overwritten at
-    admission, as in the reference."""
+    admission, as in the reference. qwen2.5-smoke runs the QKV biases,
+    mistral-nemo-smoke rope_theta 1e6, llama3-smoke head_dim 8 and 5e5;
+    the MoE prefills are batch-1 at the prompt's length, and decode at
+    batch 2 takes mixtral-smoke's dense path (B·k = E) and moonshot-smoke's
+    gather path (B·k < E)."""
     jcfg = jconfigs.get_smoke(arch).replace(dtype="float32")
     tcfg = tconfigs.get_smoke(arch).replace(dtype="float32")
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
@@ -57,7 +65,7 @@ def test_greedy_tokens_match_jax_engine(arch):
     assert len(tdone[-1].generated) < 12          # the max_len - 1 stop fired
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_launcher_runs_on_cpu(capsys, arch):
     done = launch_serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
                               "--max-len", "32", "--max-new", "4"])

@@ -87,8 +87,9 @@ def test_forward_logits_and_loss_match_jax(smoke):
     jloss = jax.jit(JM.loss_fn, static_argnums=1)(jparams, jcfg, {"tokens": jnp.asarray(tokens)})
     tparams = interop.to_torch(jparams)
     batch = {"tokens": torch.from_numpy(tokens)}
-    logits = TM.forward(tparams, tcfg, batch)
+    logits, aux = TM.forward(tparams, tcfg, batch)      # (logits, aux), as the reference's
     assert logits.dtype == torch.float32 and logits.shape == (3, 70, tcfg.vocab_size)
+    assert aux.dtype == torch.float32 and aux.item() == 0.0    # no experts
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits), **TOL)
     np.testing.assert_allclose(TM.loss_fn(tparams, tcfg, batch).item(), float(jloss), **TOL)
 
@@ -254,8 +255,10 @@ def test_make_batch_gives_the_reference_tokens(seed, step, host, num_hosts):
 
 
 def test_launcher_trains_on_cpu(capsys, tmp_path):
-    result = launch_train.main(["--device", "cpu", "--steps", "3", "--global-batch", "2",
-                                "--seq-len", "32", "--ckpt-dir", str(tmp_path)])
+    # mamba2 is named: the default arch is tiny, as in the reference launcher
+    result = launch_train.main(["--arch", "mamba2-130m", "--device", "cpu", "--steps", "3",
+                                "--global-batch", "2", "--seq-len", "32",
+                                "--ckpt-dir", str(tmp_path)])
     assert (result.status, result.step) == ("done", 3)
     assert all(np.isfinite(m["loss"]) for m in result.history)
     out = capsys.readouterr().out

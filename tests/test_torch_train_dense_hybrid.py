@@ -52,10 +52,13 @@ from repro_torch.train.loop import train_loop  # noqa: E402
 from repro_torch.train.optimizer import OptConfig  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)    # float32 on both sides; op order differs
-ARCHS = ["tiny", "granite-8b", "recurrentgemma-2b"]
-# parameter leaves: stacked (tiny, granite) or unrolled over 5 layers of
-# rglru, rglru, local_attn, rglru, rglru (recurrentgemma, tied embeddings)
-N_LEAVES = {"tiny": 12, "granite-8b": 12, "recurrentgemma-2b": 4 * 13 + 9 + 2}
+ARCHS = ["tiny", "granite-8b", "recurrentgemma-2b", "qwen2.5-14b", "mixtral-8x22b"]
+# parameter leaves: stacked (tiny, granite; qwen2.5 adds the three QKV
+# biases; mixtral has the router and three expert weights for the MLP's
+# three) or unrolled over 5 layers of rglru, rglru, local_attn, rglru, rglru
+# (recurrentgemma, tied embeddings)
+N_LEAVES = {"tiny": 12, "granite-8b": 12, "recurrentgemma-2b": 4 * 13 + 9 + 2,
+            "qwen2.5-14b": 15, "mixtral-8x22b": 13}
 RUN = dict(steps=6, global_batch=4, seq_len=48, seed=0, log_every=1)
 
 
@@ -115,12 +118,13 @@ def smoke(request):
 def test_forward_logits_and_loss_match_jax(smoke):
     _, jcfg, tcfg, jparams, tokens = smoke
     batch = {"tokens": jnp.asarray(tokens)}
-    jlogits, _ = jax.jit(JM.forward, static_argnums=1)(jparams, jcfg, batch)
+    jlogits, jaux = jax.jit(JM.forward, static_argnums=1)(jparams, jcfg, batch)
     jloss = jax.jit(JM.loss_fn, static_argnums=1)(jparams, jcfg, batch)
     tparams = interop.to_torch(jparams)
     tbatch = {"tokens": torch.from_numpy(tokens)}
-    logits = TM.forward(tparams, tcfg, tbatch)
+    logits, aux = TM.forward(tparams, tcfg, tbatch)     # (logits, aux), as the reference's
     assert logits.dtype == torch.float32 and logits.shape == (3, 45, tcfg.vocab_size)
+    np.testing.assert_allclose(aux.item(), float(jaux), **TOL)
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits), **TOL)
     np.testing.assert_allclose(TM.loss_fn(tparams, tcfg, tbatch).item(), float(jloss), **TOL)
 
@@ -171,7 +175,10 @@ def test_launcher_trains_on_cpu(capsys, tmp_path, arch):
                                 "--microbatches", "2", "--ckpt-dir", str(tmp_path)])
     assert (result.status, result.step) == ("done", 3)
     assert all(np.isfinite(m["loss"]) for m in result.history)
-    cfg = tconfigs.get_smoke(arch)
-    assert (f"arch={cfg.name} params={cfg.param_count():,} device=cpu dtype=float32"
-            in capsys.readouterr().out)
+    # tiny trains its published config, as the reference launcher does
+    cfg = tconfigs.get(arch) if arch == "tiny" else tconfigs.get_smoke(arch)
+    out = capsys.readouterr().out
+    assert f"arch={cfg.name} params={cfg.param_count():,} device=cpu dtype=float32" in out
+    if arch == "tiny":
+        assert "arch=tiny params=65,020,416 " in out
     assert tckpt.list_steps(str(tmp_path)) == [3]
