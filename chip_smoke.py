@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py [--old-src DIR]
 
-Phases, each of which ends the run with a non-zero exit when it fails:
+Phases, each of which ends the run with a non-zero exit when it fails. A
+failure, a failed check or an uncaught exception alike, prints one line on
+stdout, "chip_smoke FAILED in phase <n> <name> [<arch>]: <cause>" (an
+exception adds the last frames of its traceback), and exits with code 1;
+nothing is caught and carried on past:
   1. device   — a CUDA card must be visible; prints its name and power limit;
   2. build    — builds the hand-written kernels from src/repro_torch/csrc,
                 one nvcc per source, all started together (with --old-src,
@@ -16,8 +20,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                 card, on seeded inputs, in bf16 (the tensor-core routes of
                 flash attention and the SSD scan) and in f32 (their FMA
                 routes), at head_dim 8 (run at width 16, zero-filled) to
-                256, GQA groups of 1 (moonshot) to 10, and the RG-LRU and
-                SSD shapes
+                256, GQA groups of 1 (moonshot) to 10, the shapes of the vlm
+                and audio paths (seamless-m4t-large-v2's encoder, not causal
+                at 1024 x 1024, its decoder's self-attention, its
+                cross-attention at prefill, Sq of 100-340 against Sk = 1024,
+                and at decode, Sq = 1 against 1024; internvl2-26b's prefill
+                of 356-596 at G = 6), and the RG-LRU and SSD shapes
                 (the scan also on long-memory inputs that carry h across
                 its chunks, and in f32 against an f64 scan beside the plain
                 version); one line per kernel: the cases and the worst
@@ -41,13 +49,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                 and times each rule beside its bound (flash's in f32 and bf16,
                 beside SDPA's backward);
   4. model    — MODEL_CHECKS (granite-, recurrentgemma-, mamba2-, qwen2.5-,
-                mistral-nemo- with head_dim 32, llama3-, mixtral- and
-                moonshot-smoke) in float32 on the card against the same
-                seeded weights on the CPU: prefill, decode and every cache
-                leaf, with the kernel launches per prefill (none for mamba2:
+                mistral-nemo- with head_dim 32, llama3-, mixtral-, moonshot-,
+                internvl2- and seamless-smoke) in float32 on the card against
+                the same seeded weights on the CPU: prefill, decode and every
+                cache leaf (seamless's enc_k and enc_v too), with the kernel
+                launches per prefill and per decode step (none for mamba2:
                 its prefill runs the plain scan, as the reference's does);
-                TRAIN_CHECKS (mamba2-, tiny-, recurrentgemma-, qwen2.5- and
-                mixtral-smoke) training in float32, card against CPU: the
+                TRAIN_CHECKS (mamba2-, tiny-, recurrentgemma-, qwen2.5-,
+                mixtral-, internvl2- and seamless-smoke) training in float32,
+                card against CPU: the
                 loss and every gradient leaf of one step, then a 3-step
                 (mamba2) or 2-step loss and grad_norm curve, with the kernel
                 launches per step; for MoE the experts each token chose on
@@ -58,12 +68,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   5. serving  — granite-8b at full width (36 x 4096, bf16), then
                 recurrentgemma-2b (26 layers, 2560 wide, bf16), then
                 mamba2-130m (24 x 768, bf16), then moonshot-v1-16b-a3b (48
-                x 2048, 64 experts top-6, bf16: 52.3 GiB of weights) and
-                qwen2.5-14b (48 x 5120, QKV bias, bf16), weights made on the
-                card from a seed, each serving 8 requests through
-                ServeEngine (the last two on granite-8b's schedule); the
-                kernel launch counts are set to 0 just before each run and
-                read just after it;
+                x 2048, 64 experts top-6, bf16: 52.3 GiB of weights),
+                qwen2.5-14b (48 x 5120, QKV bias, bf16), internvl2-26b (48 x
+                6144, 256 vision tokens before each prompt, bf16: 37.0 GiB)
+                and seamless-m4t-large-v2 (24 + 24 x 1024, its encoder over
+                1024 speech frames at each prefill, bf16), weights made on
+                the card from a seed, each serving 8 requests through
+                ServeEngine (the last four on granite-8b's schedule); the
+                kernel launch counts are set to 0 just before each run, read
+                just after it and matched exactly (per prefill and decode
+                step, e.g. seamless: 72 and 24);
   6. profile  — after each serving run, the same 8 requests served again under
                 torch.profiler: host and device time of the prefill and decode
                 spans, the device's idle share, the port kernels' time and the
@@ -91,10 +105,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
                 and ends where an uninterrupted run of the same spec ends;
                 flash launches matched to 8 per step over all the jobs.
 A summary block follows (card, build time, each library's registers,
-spills, shared memory and tensor-core and cp.async instruction counts, the
-kernel and rule times beside their bounds, the serving and training
-numbers, one line per family). The whole output stays under 20,000
-bytes.
+spills, tensor-core and cp.async instruction counts, with each kernel's in
+src/repro_torch/_build/chip_smoke_build.json; the kernel and rule times
+beside their bounds). The whole output stays under 20,000 bytes.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel record. Imports nothing of JAX or of the JAX package.
 """
@@ -102,11 +115,13 @@ the per-kernel record. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import ctypes
 import gc
 import json
 import math
+import os
 import re
 import sqlite3
 import statistics
@@ -115,38 +130,73 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-
-import numpy as np
-import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import configs  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention_kernel  # noqa: E402
-from repro_torch.kernels.flash_attention import kernel as flash_module  # noqa: E402
-from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.rglru import kernel as lru_module  # noqa: E402
-from repro_torch.kernels.rglru import ops as lru_ops  # noqa: E402
-from repro_torch.kernels.rglru import lru_scan_kernel, lru_scan_ref  # noqa: E402
-from repro_torch.kernels.ssd import kernel as ssd_module  # noqa: E402
-from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd import ssd_kernel, ssd_ref, ssd_vjp  # noqa: E402
-from repro_torch.launch.cluster import ClusterRunner  # noqa: E402
-from repro_torch.models import model as M  # noqa: E402
-from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.parallel.steps import init_train_state, make_train_step  # noqa: E402
-from repro_torch.serve.engine import ServeEngine  # noqa: E402
-from repro_torch.data.pipeline import make_batch  # noqa: E402
-from repro_torch.train import checkpoint as ckpt  # noqa: E402
-from repro_torch.train.loop import TrainResult, train_loop  # noqa: E402
-from repro_torch.train.optimizer import OptConfig  # noqa: E402
+# Where the run is: (phase number, name, arch or kernel or None). fail() and
+# the handler around main() name it on stdout, so a failure names its own
+# phase and cause wherever only the standard output is kept.
+PHASE: list = [0, "import", None]
+
+
+def _where() -> str:
+    n, name, arch = PHASE
+    return f"phase {n} {name}" + (f" [{arch}]" if arch else "")
+
+
+def at_phase(n: int, name: str, arch: str | None = None) -> None:
+    PHASE[:] = [n, name, arch]
+
+
+def fail(msg: str):
+    """Ends the run: one line on stdout naming the phase and the cause, then
+    exit code 1."""
+    print(f"chip_smoke FAILED in {_where()}: {msg}", flush=True)
+    raise SystemExit(1)
+
+
+def report_exception(exc: BaseException, frames: int = 6) -> None:
+    """An uncaught exception, on stdout: the FAILED line with its type and
+    message, then the last ``frames`` frames of its traceback."""
+    print(f"chip_smoke FAILED in {_where()}: {type(exc).__name__}: {exc}"[:2000], flush=True)
+    print("".join(traceback.format_tb(exc.__traceback__)[-frames:]).rstrip()[-4000:],
+          flush=True)
+
+
+try:
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import configs  # noqa: E402
+    from repro_torch.kernels import build  # noqa: E402
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_kernel  # noqa: E402
+    from repro_torch.kernels.flash_attention import kernel as flash_module  # noqa: E402
+    from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+    from repro_torch.kernels.rglru import kernel as lru_module  # noqa: E402
+    from repro_torch.kernels.rglru import ops as lru_ops  # noqa: E402
+    from repro_torch.kernels.rglru import lru_scan_kernel, lru_scan_ref  # noqa: E402
+    from repro_torch.kernels.ssd import kernel as ssd_module  # noqa: E402
+    from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+    from repro_torch.kernels.ssd import ssd_kernel, ssd_ref, ssd_vjp  # noqa: E402
+    from repro_torch.launch.cluster import ClusterRunner  # noqa: E402
+    from repro_torch.models import model as M  # noqa: E402
+    from repro_torch.models import moe as moe_mod  # noqa: E402
+    from repro_torch.models import transformer as tfm  # noqa: E402
+    from repro_torch.parallel.steps import init_train_state, make_train_step  # noqa: E402
+    from repro_torch.serve.engine import ServeEngine  # noqa: E402
+    from repro_torch.data.pipeline import make_batch  # noqa: E402
+    from repro_torch.train import checkpoint as ckpt  # noqa: E402
+    from repro_torch.train.loop import TrainResult, train_loop  # noqa: E402
+    from repro_torch.train.optimizer import OptConfig  # noqa: E402
+except ImportError as exc:       # e.g. run alone, without the repository's src/
+    report_exception(exc)
+    sys.exit(1)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
@@ -190,10 +240,6 @@ F32_GRAD_FLOOR = 16 * 2.0 ** -24
 # the f32 sums' roundings (about sqrt(S) 2^-24, 3e-6 at S=2048).
 F32_FLASH_GRAD_REL = TOL[torch.float32]["rtol"]
 T_START = time.perf_counter()
-
-
-def fail(msg: str):
-    raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
 def log(msg: str) -> None:
@@ -308,29 +354,50 @@ def counts_str(counts: dict) -> str:
     return ", ".join(f"{SHORT[k]} {n}" for k, n in counts.items() if n) or "none"
 
 
-def launches_per_prefill(cfg) -> dict:
-    """One flash launch per attention layer and one scan per rglru layer. No
-    SSD launch: the ssm prefill runs the plain scan, which also returns the
-    final state, as the reference's prefill does (the kernel returns y
-    only); the SSD kernel runs on the training path."""
+ATTENTION_KINDS = ("attn", "local_attn", "enc_attn", "cross")
+
+
+def _flash_per_pass(cfg) -> int:
+    """Flash launches in one pass over the sequence: one per attention layer
+    (``attn``, ``local_attn``), two per ``cross`` layer (its self-attention
+    and its cross-attention) and one per encoder layer."""
     kinds = tfm.layer_kinds(cfg)
-    return {"flash_attention": sum(k in ("attn", "local_attn") for k in kinds),
-            "lru_scan": kinds.count("rglru"), "ssd_scan": 0}
+    return (sum(k in ("attn", "local_attn") for k in kinds) + 2 * kinds.count("cross")
+            + len(tfm.layer_kinds(cfg, encoder=True)))
+
+
+def launches_per_prefill(cfg) -> dict:
+    """One flash launch per attention of the pass (``_flash_per_pass``) and
+    one scan per rglru layer. No SSD launch: the ssm prefill runs the plain
+    scan, which also returns the final state, as the reference's prefill
+    does (the kernel returns y only); the SSD kernel runs on the training
+    path."""
+    kinds = tfm.layer_kinds(cfg)
+    return {"flash_attention": _flash_per_pass(cfg), "lru_scan": kinds.count("rglru"),
+            "ssd_scan": 0}
+
+
+def launches_per_decode(cfg) -> dict:
+    """A decode step attends over its cache in plain PyTorch, as the
+    reference does, except a ``cross`` layer's cross-attention over the
+    encoder's K/V: one flash launch (Sq = 1) per cross layer."""
+    return {**NO_LAUNCHES, "flash_attention": tfm.layer_kinds(cfg).count("cross")}
 
 
 def launches_per_train_step(cfg, microbatches: int = 1) -> dict:
-    """Per microbatch, the forward launches flash once per attention layer,
-    the scan once per rglru layer and the SSD kernel once per ssm layer; in
-    the backward, the scan's rule launches the scan once more, and the flash
-    and SSD rules (plain recomputes) launch nothing."""
+    """Per microbatch, the forward launches flash once per attention of the
+    pass, the scan once per rglru layer and the SSD kernel once per ssm
+    layer; in the backward, the scan's rule launches the scan once more, and
+    the flash and SSD rules (plain recomputes) launch nothing."""
     kinds = tfm.layer_kinds(cfg)
-    per_mb = {"flash_attention": sum(k in ("attn", "local_attn") for k in kinds),
+    per_mb = {"flash_attention": _flash_per_pass(cfg),
               "lru_scan": 2 * kinds.count("rglru"), "ssd_scan": kinds.count("ssm")}
     return {k: n * microbatches for k, n in per_mb.items()}
 
 
 # --------------------------------------------------------------------- phases
 def phase_device() -> str:
+    at_phase(1, "device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a CUDA card")
     # float32 matmuls in full float32 on the card, as on the CPU
@@ -418,6 +485,7 @@ def phase_build(old_src: Path | None) -> dict:
     the old design's sources that ``old_src`` holds beside them, into their
     own directory); then reads registers, spills and shared memory from the
     -Xptxas -v logs and counts HMMA and LDGSTS in the SASS."""
+    at_phase(2, "build")
     t0 = time.perf_counter()
     jobs = {name: (lambda m=m: m._library()) for name, m in KERNEL_MODULES.items()}
     if old_src is not None:
@@ -528,6 +596,33 @@ class Cases:
         log(f"[kernels] {self.name}: {self.n} cases ok, {worst}")
 
 
+# The flash shapes of the vlm and audio paths, (B, Sq, Sk, H, K, D) and
+# (causal, window): seamless-m4t-large-v2's encoder (1024 frames, not
+# causal), decoder self-attention (a prompt of 100 or 340), cross-attention
+# at prefill (the prompt against the 1024 frames) and at decode (4 rows of
+# one token); internvl2-26b's prefill (256 vision tokens before a prompt of
+# 100 or 340, GQA 48/8 at D=128).
+SEAMLESS_INTERNVL_FLASH = [((1, 1024, 1024, 16, 16, 64), (False, None)),
+                           ((1, 100, 100, 16, 16, 64), (True, None)),
+                           ((1, 340, 340, 16, 16, 64), (True, None)),
+                           ((1, 100, 1024, 16, 16, 64), (False, None)),
+                           ((1, 340, 1024, 16, 16, 64), (False, None)),
+                           ((4, 1, 1024, 16, 16, 64), (False, None)),
+                           ((1, 356, 356, 48, 8, 128), (True, None)),
+                           ((1, 596, 596, 48, 8, 128), (True, None))]
+# Timed in bf16 beside SDPA and the bound, (B, Sq, Sk, H, K, D, causal,
+# window): granite-8b's prefill (the first: the kernels line's main shape)
+# and its S=2048, recurrentgemma-2b's local attention, moonshot's G=1, then
+# seamless-m4t-large-v2's encoder, cross-attention at prefill and at
+# decode, and internvl2-26b's longest prefill.
+FLASH_TIMED = [(1, 340, 340, 32, 8, 128, True, None), (1, 2048, 2048, 32, 8, 128, True, None),
+               (1, 340, 340, 10, 1, 256, True, 2048), (1, 2500, 2500, 10, 1, 256, True, 2048),
+               (1, 340, 340, 16, 16, 128, True, None),
+               (1, 1024, 1024, 16, 16, 64, False, None), (1, 340, 1024, 16, 16, 64, False, None),
+               (4, 1, 1024, 16, 16, 64, False, None), (1, 596, 596, 48, 8, 128, True, None)]
+FLASH_MAIN = (1, 340, 340, 32, 128, True)
+
+
 def check_flash(gen, dev, old) -> dict:
     def inputs(B, Sq, Sk, H, K, D, dt):
         return [torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -557,6 +652,8 @@ def check_flash(gen, dev, old) -> dict:
         cases += [(2, 45, 45, 8, 2, 8, dt, True, None), (1, 130, 130, 8, 2, 8, dt, True, 64)]
     cases += [(1, 340, 340, 16, 16, 128, torch.bfloat16, True, None),  # moonshot: G=1
               (1, 340, 340, 40, 8, 128, torch.bfloat16, True, None)]   # qwen2.5-14b: G=5
+    for dt in (torch.bfloat16, torch.float32):
+        cases += [case + (dt,) + mask for case, mask in SEAMLESS_INTERNVL_FLASH]
     check = Cases("flash_attention")
     for (B, Sq, Sk, H, K, D, dt, causal, window) in cases:
         q, k, v = inputs(B, Sq, Sk, H, K, D, dt)
@@ -565,42 +662,43 @@ def check_flash(gen, dev, old) -> dict:
         ref = attention_ref(q, k, v, causal=causal, window=window)
         check.check(f"B={B} Sq={Sq} Sk={Sk} H={H} K={K} D={D} {str(dt)[6:]} "
                     f"causal={causal} window={window}", out, ref, TOL[dt],
-                    key=(Sq, dt, H, D, window))
+                    key=(B, Sq, Sk, dt, H, D, causal, window))
     check.report()
 
     old_run = _old_flash(old) if old is not None else None
     timings = {}
-    for (S, H, K, D, window) in ((340, 32, 8, 128, None), (2048, 32, 8, 128, None),
-                                 (340, 10, 1, 256, 2048), (2500, 10, 1, 256, 2048),
-                                 (340, 16, 16, 128, None)):
-        B = 1
-        q, k, v = inputs(B, S, S, H, K, D, torch.bfloat16)
+    for (B, Sq, Sk, H, K, D, causal, window) in FLASH_TIMED:
+        q, k, v = inputs(B, Sq, Sk, H, K, D, torch.bfloat16)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if window is None:
             lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
         else:                              # SDPA takes the window as a boolean mask
-            qpos = torch.arange(S, device=dev)[:, None]
-            kpos = torch.arange(S, device=dev)[None, :]
+            qpos = torch.arange(Sq, device=dev)[:, None]
+            kpos = torch.arange(Sk, device=dev)[None, :]
             mask = (kpos <= qpos) & (qpos - kpos < window)
             lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)
         old_fn = None
-        if old_run is not None:
+        if old_run is not None and causal and Sq == Sk:
             if not torch.allclose(old_run(q, k, v, window).float(),
                                   attention_ref(q, k, v, window=window).float(),
                                   **TOL[torch.bfloat16]):
-                fail(f"the old design's flash kernel disagrees at S={S} D={D}")
+                fail(f"the old design's flash kernel disagrees at S={Sq} D={D}")
             old_fn = lambda: old_run(q, k, v, window)  # noqa: E731
-        ms, old_ms = time_in_turns(lambda: flash_attention_kernel(q, k, v, window=window),
-                                   old_fn)
-        plain_ms = time_ms(lambda: attention_ref(q, k, v, window=window), iters=5)
+        ms, old_ms = time_in_turns(
+            lambda: flash_attention_kernel(q, k, v, causal=causal, window=window), old_fn)
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal, window=window),
+                           iters=5)
         lib_ms = time_ms(lib)
-        bound_ms, bound_by = attention_bound(B, S, S, H, K, D, True, window)
-        shape = f"bf16 causal B=1 S={S} H={H} K={K} D={D} window={window}"
-        timings[(S, H, D)] = dict(shape=shape, ms=ms, old_ms=old_ms, plain_ms=plain_ms,
-                               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                               max_abs_err=check.errs.get((S, torch.bfloat16, H, D, window)))
+        bound_ms, bound_by = attention_bound(B, Sq, Sk, H, K, D, causal, window)
+        seq = f"S={Sq}" if Sq == Sk else f"S={Sq}x{Sk}"
+        shape = (f"bf16 {'causal' if causal else 'full'} B={B} {seq} H={H} K={K} D={D}"
+                 + (f" w={window}" if window else ""))
+        timings[(B, Sq, Sk, H, D, causal)] = dict(
+            shape=shape, ms=ms, old_ms=old_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=check.errs[(B, Sq, Sk, torch.bfloat16, H, D, causal, window)])
     return timings
 
 
@@ -635,6 +733,54 @@ def scan_f64(a, b):
     return out
 
 
+class Trace:
+    """A torch.profiler run summed from its raw events: each kernel's calls
+    and device ns by name (every device-side event but the ranges of the
+    labels), and per record_function label its calls, host ns and the
+    device ns of the kernels that its ops launched (an op is the label's
+    when it starts inside one of the label's ranges, on any thread: the
+    backward's rules run on autograd's). ``prof.key_averages()`` gives the
+    same sums but first builds the event tree, which takes tens of seconds
+    for the few hundred thousand events of one serving run."""
+
+    def __init__(self, prof, labels=()):
+        self.kernels: dict[str, list] = {}
+        ranges = {label: [] for label in labels}
+        op_start, kernel_ops = {}, []
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if e.device_type() != DeviceType.CPU:
+                if name in ranges:
+                    continue                     # a label's range on the device
+                k = self.kernels.setdefault(name, [0, 0])
+                k[0] += 1
+                k[1] += e.duration_ns()
+                kernel_ops.append((e.linked_correlation_id(), e.duration_ns()))
+            elif name in ranges:
+                ranges[name].append((e.start_ns(), e.start_ns() + e.duration_ns()))
+            elif not e.linked_correlation_id():      # a PyTorch op, not a runtime call
+                op_start[e.correlation_id()] = e.start_ns()
+        launched = sorted((op_start[op], ns) for op, ns in kernel_ops if op in op_start)
+        starts = [t for t, _ in launched]
+        cum = [0]
+        for _, ns in launched:
+            cum.append(cum[-1] + ns)
+        self.labels = {}
+        for label, rs in ranges.items():
+            device = sum(cum[bisect.bisect_right(starts, b)] - cum[bisect.bisect_left(starts, a)]
+                         for a, b in rs)
+            self.labels[label] = {"calls": len(rs), "host_ns": sum(b - a for a, b in rs),
+                                  "device_ns": device}
+
+    def busy_ms(self) -> float:
+        return sum(ns for _, ns in self.kernels.values()) / 1e6
+
+    def matching_ms(self, pattern: str) -> float:
+        """Device ms of the kernels whose name matches ``pattern``."""
+        return sum(ns for name, (_, ns) in self.kernels.items()
+                   if re.search(pattern, name)) / 1e6
+
+
 def scan_device_ms(fn, flush=None, iters: int = 20) -> float:
     """Device time of one call of ``fn``: the summed durations of the RG-LRU
     kernels it launches (``LRU_KERNELS``), from torch.profiler's kernel events
@@ -652,11 +798,10 @@ def scan_device_ms(fn, flush=None, iters: int = 20) -> float:
                 flush.sum()
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and re.search(LRU_KERNELS, e.key))
-    if us <= 0:
+    ms = Trace(prof).matching_ms(LRU_KERNELS)
+    if ms <= 0:
         fail("the profiler shows no RG-LRU kernel time")
-    return us / iters / 1e3
+    return ms / iters
 
 
 def _old_lru(lib):
@@ -1060,12 +1205,20 @@ def check_lru_grad(gen, dev) -> list:
 
 def phase_kernels(dev, old: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
+    at_phase(3, "kernels", "flash_attention")
     flash = check_flash(gen, dev, old.get("flash_attention"))
+    at_phase(3, "kernels", "lru_scan")
     lru, lru_launch = check_lru(gen, dev, old.get("lru_scan"))
-    return {"flash": flash, "lru": lru, "lru_launch": lru_launch,
-            "ssd": check_ssd(gen, dev, old.get("ssd_scan")),
-            "ssd_grad": check_ssd_grad(gen, dev),
-            "flash_grad": check_flash_grad(gen, dev), "lru_grad": check_lru_grad(gen, dev)}
+    at_phase(3, "kernels", "ssd_scan")
+    recs = {"flash": flash, "lru": lru, "lru_launch": lru_launch,
+            "ssd": check_ssd(gen, dev, old.get("ssd_scan"))}
+    at_phase(3, "kernels", "ssd_scan gradient rule")
+    recs["ssd_grad"] = check_ssd_grad(gen, dev)
+    at_phase(3, "kernels", "flash_attention gradient rule")
+    recs["flash_grad"] = check_flash_grad(gen, dev)
+    at_phase(3, "kernels", "lru_scan gradient rule")
+    recs["lru_grad"] = check_lru_grad(gen, dev)
+    return recs
 
 
 # A differing expert choice between the card and the CPU is a routing tie
@@ -1139,6 +1292,7 @@ def model_check(dev, cfg, B: int, S: int, pos: list[int], max_len: int) -> str:
     the phase's line: the worst error over the logits and every cache leaf,
     the launches per prefill, and for MoE the expert choices and drops."""
     cfg = cfg.replace(dtype="float32")
+    at_phase(4, "model", f"{cfg.name} serving")
     gen = torch.Generator().manual_seed(0)
     params = M.init_params(cfg, gen)
     for name in ("bq", "bk", "bv"):
@@ -1146,24 +1300,31 @@ def model_check(dev, cfg, B: int, S: int, pos: list[int], max_len: int) -> str:
             params["layers"][name] = 0.5 * torch.randn(params["layers"][name].shape,
                                                        generator=gen)
     rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))}
+    if cfg.family in M.FRONTEND_KEYS:     # a vlm's vision or an audio arch's speech frames
+        batch[M.FRONTEND_KEYS[cfg.family]] = torch.from_numpy(0.02 * rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.d_model), dtype=np.float32))
     nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)))
     res, counts, routes = {}, {}, {}
     for device in ("cpu", dev):
         p = to_device(params, device)
         with torch.inference_mode(), _maybe_routes(cfg) as r:
             reset_counts()
-            logits, cache = M.prefill(p, cfg, {"tokens": tokens.to(device)}, max_len)
+            logits, cache = M.prefill(p, cfg, to_device(batch, device), max_len)
             counts[str(device)] = read_counts()
+            reset_counts()
             dlogits, cache = M.decode_step(p, cfg, cache, nxt.to(device),
                                            torch.tensor(pos, device=device))
+            counts[f"{device} decode"] = read_counts()
         routes[str(device)] = r
         res[str(device)] = {"prefill logits": logits.cpu(), "decode logits": dlogits.cpu(),
                             **{f"cache {k}": t.cpu() for k, t in leaves(cache["layers"])}}
     cpu, card = res["cpu"], res[str(dev)]
     worst = max((card[k] - cpu[k]).abs().max().item() for k in cpu)
     launches, expect = counts[str(dev)], launches_per_prefill(cfg)
-    part = f"{cfg.name} {worst:.1e} ({len(cpu) - 2} leaves, {counts_str(launches)})"
+    decode, expect_decode = counts[f"{dev} decode"], launches_per_decode(cfg)
+    part = (f"{cfg.name} {worst:.1e} ({len(cpu) - 2} leaves, {counts_str(launches)}"
+            + (f"; decode {counts_str(decode)})" if decode != NO_LAUNCHES else ")"))
     tie = False
     if cfg.num_experts:
         report, tie = compare_routes(cfg.name, routes["cpu"], routes[str(dev)])
@@ -1175,10 +1336,12 @@ def model_check(dev, cfg, B: int, S: int, pos: list[int], max_len: int) -> str:
                if not torch.allclose(card[k], cpu[k], **MODEL_TOL)}
         log(f"[model] {cfg.name} serving, card vs CPU: {bad} MISMATCH")
         fail(f"{cfg.name} on the card disagrees with the CPU")
-    if counts["cpu"] != NO_LAUNCHES:
-        fail(f"the CPU path launched kernels: {counts['cpu']}")
+    if counts["cpu"] != NO_LAUNCHES or counts["cpu decode"] != NO_LAUNCHES:
+        fail(f"the CPU path launched kernels: {counts['cpu']}, {counts['cpu decode']}")
     if launches != expect:
         fail(f"{cfg.name} prefill launched {launches}, expected {expect}")
+    if decode != expect_decode:
+        fail(f"{cfg.name} decode step launched {decode}, expected {expect_decode}")
     return part
 
 
@@ -1189,6 +1352,7 @@ def train_check(dev, arch: str, steps: int) -> str:
     make_train_step, with the kernel launches per step. Returns the arch's
     part of the phase's line."""
     cfg = configs.get_smoke(arch).replace(dtype="float32")
+    at_phase(4, "model", f"{cfg.name} training")
     # ragged against mamba2-smoke's chunk of 32; past recurrentgemma-smoke's window of 32
     batches = [make_batch(cfg, 2, 100, seed=0, step=i) for i in range(steps)]
     res, counts, routes = {}, {}, {}
@@ -1250,7 +1414,11 @@ def train_check(dev, arch: str, steps: int) -> str:
 # smoke's head_dim 8 runs the kernel at width 16. MoE prompts of 45 drop
 # tokens past the capacity (28 for mixtral-smoke, 14 for moonshot-smoke);
 # decode at B = 2 takes mixtral-smoke's dense path (B·k = 4 = E) and
-# moonshot-smoke's gather path (4 < 8).
+# moonshot-smoke's gather path (4 < 8). internvl2-smoke's 8 vision
+# embeddings come before the prompt, so its decode positions count them;
+# seamless-smoke's 16 speech frames go through the encoder (2 launches),
+# each decoder layer launches its self- and cross-attention, and a decode
+# step its cross-attention (Sq = 1 against the 16 frames).
 MODEL_CHECKS = [
     (configs.get_smoke("granite-8b"), 2, 37, [37, 30], 64),
     (configs.get_smoke("recurrentgemma-2b"), 2, 45, [45, 33], 64),
@@ -1260,13 +1428,16 @@ MODEL_CHECKS = [
     (configs.get_smoke("llama3-405b"), 2, 45, [45, 33], 64),
     (configs.get_smoke("mixtral-8x22b"), 2, 45, [45, 33], 64),
     (configs.get_smoke("moonshot-v1-16b-a3b"), 2, 45, [45, 33], 64),
+    (configs.get_smoke("internvl2-26b"), 2, 37, [45, 38], 64),
+    (configs.get_smoke("seamless-m4t-large-v2"), 2, 37, [37, 30], 64),
 ]
 # Training checks, card against CPU. tiny-smoke and granite-smoke differ
 # only in name and dtype, and both run here in f32: the same computation
 # (they printed the same loss and errors), so tiny-smoke stands for the
 # pair (tiny is the dense arch that trains at full width).
 TRAIN_CHECKS = [("mamba2-130m", 3), ("tiny", 2), ("recurrentgemma-2b", 2),
-                ("qwen2.5-14b", 2), ("mixtral-8x22b", 2)]
+                ("qwen2.5-14b", 2), ("mixtral-8x22b", 2), ("internvl2-26b", 2),
+                ("seamless-m4t-large-v2", 2)]
 
 
 def phase_model(dev) -> None:
@@ -1285,6 +1456,7 @@ _SCHEDULES: dict = {}       # prompt range -> the schedule last printed for it
 def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) -> dict:
     """Serve 8 requests at full width with prompt lengths drawn from
     ``prompt_range`` (the longest forced into request 0), 2-16 new tokens."""
+    at_phase(5, "serving", arch)
     cfg = configs.get(arch)
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -1338,14 +1510,13 @@ def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) 
                 f"{[int(n) for n in max_new]}")
     active = (f" ({cfg.active_param_count() / 1e9:.3f} B active: top-{cfg.num_experts_per_tok} "
               f"of {cfg.num_experts} experts)" if cfg.num_experts else "")
-    log(f"[serve] {arch} {cfg.num_layers} x {cfg.d_model}, {n_params / 1e9:.3f} B{active} "
-        f"{cfg.dtype} params made on the card in {setup_s:.3f} s (set-up); {len(done)} "
-        f"requests, " + ("the same schedule" if schedule == _SCHEDULES.get(prompt_range)
-                         else schedule))
+    if schedule != _SCHEDULES.get(prompt_range):     # printed once per schedule
+        log(f"[serve] schedule: {len(done)} requests, {schedule}")
     _SCHEDULES[prompt_range] = schedule
-    log(f"[serve] {arch}: wall {wall:.4f} s: {n_prefill} prefills, mean "
-        f"{1e3 * statistics.mean(stats['prefill_s']):.3f} ms per request; "
-        f"{n_steps} decode steps (batch 4), mean "
+    log(f"[serve] {arch} {cfg.num_layers} x {cfg.d_model}, {n_params / 1e9:.3f} B{active} "
+        f"{cfg.dtype} params made on the card in {setup_s:.3f} s (set-up); wall {wall:.4f} s: "
+        f"{n_prefill} prefills, mean {1e3 * statistics.mean(stats['prefill_s']):.3f} ms per "
+        f"request; {n_steps} decode steps (batch 4), mean "
         f"{1e3 * statistics.mean(stats['decode_s']):.3f} ms, median "
         f"{1e3 * statistics.median(stats['decode_s']):.3f} ms per step; "
         f"{tokens} tokens, {tokens / wall:.2f} tokens/s; peak memory "
@@ -1357,25 +1528,27 @@ def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) 
         fail("a request generated more tokens than its budget")
     if not stats["finite"]:
         fail("non-finite logits")
-    expect = {k: n * n_prefill for k, n in launches_per_prefill(cfg).items()}
+    per_decode = launches_per_decode(cfg)
+    expect = {k: n * n_prefill + per_decode[k] * n_steps
+              for k, n in launches_per_prefill(cfg).items()}
     if n_prefill != len(done) or launches != expect:
-        fail(f"{arch}: launches {launches} != {expect} for {n_prefill} prefills")
+        fail(f"{arch}: launches {launches} != {expect} for {n_prefill} prefills and "
+             f"{n_steps} decode steps")
     with torch.inference_mode():                # greedy first token, request alone
-        logits, _ = M.prefill(params, cfg, {"tokens": torch.tensor([prompts[0]], device=dev)},
-                              max_len)
+        logits, _ = M.prefill(params, cfg, engine.prefill_batch(prompts[0]), max_len)
     if int(torch.argmax(logits[0])) != done[0].generated[0]:
         fail("first token of request 0 differs from its single-request prefill")
     return {"arch": arch, "cfg": cfg, "launches": launches, "engine": engine,
             "prompts": prompts, "max_new": max_new, "stats": stats, "wall_s": wall,
-            "tokens": tokens, "steps": n_steps, "peak_gib": peak / 2**30, "card": card}
+            "tokens": tokens, "steps": n_steps, "card": card}
 
 
-def top_kernels(kernels, busy_ms: float, n: int = 2) -> str:
+def top_kernels(trace: Trace, n: int = 2) -> str:
     """The ``n`` kernels that take the most device time, on one line."""
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n]
-    return "; ".join(f"{e.self_device_time_total / 1e3:.3f} ms "
-                     f"({e.self_device_time_total / 1e3 / max(busy_ms, 1e-9):.1%}) x{e.count} "
-                     f"{e.key[:40]}" for e in top)
+    busy_ms = trace.busy_ms()
+    top = sorted(trace.kernels.items(), key=lambda kv: -kv[1][1])[:n]
+    return "; ".join(f"{ns / 1e6:.3f} ms ({ns / 1e6 / max(busy_ms, 1e-9):.1%}) x{count} "
+                     f"{name[:40]}" for name, (count, ns) in top)
 
 
 def phase_profile(serve: dict) -> None:
@@ -1387,6 +1560,7 @@ def phase_profile(serve: dict) -> None:
     wall for the same work (1 - kernel time / untraced wall; kernel times do
     not change under tracing)."""
     engine, stats, arch = serve["engine"], serve["stats"], serve["arch"]
+    at_phase(6, "profile", arch)
 
     def labelled(fn, name):
         def run(*args):
@@ -1411,47 +1585,35 @@ def phase_profile(serve: dict) -> None:
     if (tokens, steps) != (serve["tokens"], serve["steps"]):
         fail(f"{arch}: traced run served {tokens} tokens in {steps} steps, phase 5 "
              f"{serve['tokens']} in {serve['steps']}")
-    spans = tuple(untraced_us)
-    events = prof.key_averages()
-    # device-side entries: the kernels, plus one GPU range per span (skipped)
-    kernels = [e for e in events
-               if e.device_type == DeviceType.CUDA and e.key not in spans]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    trace = Trace(prof, untraced_us)
+    busy_us = trace.busy_ms() * 1e3
     untraced_wall_us = serve["wall_s"] * 1e6
-    port_us = {name: sum(e.self_device_time_total for e in kernels if re.search(pat, e.key))
+    port_us = {name: trace.matching_ms(pat) * 1e3
                for name, pat in (("flash", r"flash_fwd\w*_kernel"), ("lru", LRU_KERNELS))}
-    log(f"[profile] {arch}: kernels busy "
-        f"{busy_us / 1e3:.3f} ms; traced wall {wall_us / 1e3:.3f} ms (device idle "
-        f"{1 - busy_us / wall_us:.1%}); untraced wall (phase 5) "
-        f"{untraced_wall_us / 1e3:.3f} ms (device idle "
-        f"{1 - busy_us / untraced_wall_us:.1%}); port kernels: " + (", ".join(
-            f"{name} {us / 1e3:.3f} ms ({us / max(busy_us, 1):.1%})"
-            for name, us in port_us.items() if us) or "none launched"))
     per_call = []
-    for e in events:
-        if e.key in spans and e.device_type == DeviceType.CPU:
-            dev_us = e.device_time_total / e.count
-            per_call.append(
-                f"{e.key[6:]} x{e.count} {untraced_us[e.key] / 1e3:.3f} / "
-                f"{e.cpu_time_total / e.count / 1e3:.3f} / {dev_us / 1e3:.3f}, "
-                f"{1 - dev_us / untraced_us[e.key]:.1%}")
-    log(f"[profile] {arch} per call, ms untraced / traced host / kernels, idle: "
-        + "; ".join(per_call) + "; top kernels: " + top_kernels(kernels, busy_us / 1e3)
+    for span, t in trace.labels.items():
+        if not t["calls"]:
+            fail(f"{arch}: the trace holds no {span} range")
+        dev_us = t["device_ns"] / 1e3 / t["calls"]
+        per_call.append(
+            f"{span[6:]} x{t['calls']} {untraced_us[span] / 1e3:.3f} / "
+            f"{t['host_ns'] / 1e6 / t['calls']:.3f} / {dev_us / 1e3:.3f}, "
+            f"{1 - dev_us / untraced_us[span]:.1%}")
+    log(f"[profile] {arch}: kernels {busy_us / 1e3:.3f} ms; device idle "
+        f"{1 - busy_us / wall_us:.1%} of the traced wall {wall_us / 1e3:.3f} ms, "
+        f"{1 - busy_us / untraced_wall_us:.1%} of phase 5's {untraced_wall_us / 1e3:.3f} ms; "
+        + (", ".join(f"{name} {us / 1e3:.3f} ms ({us / max(busy_us, 1):.1%})"
+                     for name, us in port_us.items() if us) or "no port kernel")
+        + "; per call, ms untraced / traced host / kernels, idle: " + "; ".join(per_call)
+        + "; top: " + top_kernels(trace)
         + f" [at {time.perf_counter() - T_START:.1f} s]")
-    serve["profile"] = {"busy_ms": busy_us / 1e3, "idle": 1 - busy_us / untraced_wall_us,
-                        "flash_ms": port_us["flash"] / 1e3, "lru_ms": port_us["lru"] / 1e3}
 
 
 def serve_and_profile(dev, arch: str, **kw) -> dict:
     """Phases 5 and 6 for one arch; frees its weights and cache after."""
     serve = phase_serve(dev, arch, **kw)
-    stats = serve["stats"]                      # phase 5's run (phase 6 adds to it)
-    result = {"launches": serve["launches"], "tokens_s": serve["tokens"] / serve["wall_s"],
-              "prefill_ms": 1e3 * statistics.mean(stats["prefill_s"]),
-              "decode_ms": 1e3 * statistics.mean(stats["decode_s"]),
-              "peak_gib": serve["peak_gib"], "card": serve["card"], "cfg": serve["cfg"]}
+    result = {k: serve[k] for k in ("launches", "card", "cfg")}
     phase_profile(serve)
-    result.update(serve["profile"])
     serve.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1487,6 +1649,7 @@ def phase_train(dev, arch: str) -> dict:
     match launches_per_train_step exactly. Step times come from the host
     clock between the loop's per-step metric reads, each of which
     synchronises."""
+    at_phase(7, "training", arch)
     cfg, run = configs.get(arch), TRAIN_RUNS[arch]
     opt = OptConfig(lr=3e-4)
     stamps, history = [], []
@@ -1537,10 +1700,7 @@ def phase_train(dev, arch: str) -> dict:
     if launches != expect:
         fail(f"{arch} training launched {launches}, expected {expect}")
     return {"arch": arch, "launches": launches, "cfg": cfg, "opt": opt, **run,
-            "step_ms": statistics.mean(steady) * 1e3,
-            "median_ms": statistics.median(steady) * 1e3,
-            "tokens_s": tokens / statistics.mean(steady), "peak_gib": peak / 2**30,
-            "losses": losses, "card": card}
+            "step_ms": statistics.mean(steady) * 1e3, "card": card}
 
 
 # Gradient rules, each timed on the device under a label for the profiled step.
@@ -1567,6 +1727,7 @@ def phase_train_profile(dev, train: dict) -> None:
     device's idle share of the traced step and of phase 7's untraced mean
     step. Frees its state after."""
     cfg, opt, arch, mb = train["cfg"], train["opt"], train["arch"], train["microbatches"]
+    at_phase(7, "training", f"{arch} profile")
     state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(1),
                              opt=opt, device=dev)
     step = make_train_step(cfg, opt=opt, microbatches=mb)
@@ -1588,30 +1749,24 @@ def phase_train_profile(dev, train: dict) -> None:
     finally:
         for mod, name, fn in rules:
             setattr(mod, name, fn)
-    labels = ("train.step",) + tuple(label for *_, label in RULES)
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in labels]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    shares = {name: sum(e.self_device_time_total for e in kernels
-                        if re.search(pat, e.key)) / 1e3 for name, pat in PORT_KERNELS}
-    shares.update({label: sum(e.device_time_total for e in events
-                              if e.key == label and e.device_type == DeviceType.CPU) / 1e3
-                   for *_, label in RULES})
+    trace = Trace(prof, ("train.step",) + tuple(label for *_, label in RULES))
+    busy_ms = trace.busy_ms()
+    shares = {name: trace.matching_ms(pat) for name, pat in PORT_KERNELS}
+    shares.update({label: trace.labels[label]["device_ns"] / 1e6 for *_, label in RULES})
     used = {k: v for k, v in shares.items() if v > 0}
     log(f"[profile] {arch} train step ({mb} x {train['global_batch'] // mb} x "
         f"{TRAIN['seq_len']}): kernels busy {busy_ms:.3f} ms; traced wall {wall_ms:.3f} ms "
         f"(device idle {1 - busy_ms / wall_ms:.1%}); untraced mean step (phase 7) "
         f"{train['step_ms']:.3f} ms (device idle {1 - busy_ms / train['step_ms']:.1%}); "
         + ", ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%})" for k, v in used.items())
-        + "; top kernels: " + top_kernels(kernels, busy_ms)
+        + "; top kernels: " + top_kernels(trace)
         + f" [at {time.perf_counter() - T_START:.1f} s]")
     kinds = set(tfm.layer_kinds(cfg))
-    need = {"ssm": ("ssd_fwd", "ssd_rule"), "attn": ("flash_fwd", "flash_rule"),
-            "local_attn": ("flash_fwd", "flash_rule"), "rglru": ("lru_scans", "lru_rule")}
+    need = {"ssm": ("ssd_fwd", "ssd_rule"), "rglru": ("lru_scans", "lru_rule"),
+            **{k: ("flash_fwd", "flash_rule") for k in ATTENTION_KINDS}}
     missing = [n for k in kinds for n in need[k] if n not in used]
     if missing:
         fail(f"the profiled {arch} train step shows no device time for {missing}")
-    train.update(busy_ms=busy_ms, shares=used, idle=1 - busy_ms / train["step_ms"])
     del state, step, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -1705,6 +1860,7 @@ def phase_runner(dev) -> dict:
     launches the regular job as soon as it flags the best-effort one; job 3
     is the clone OAR resubmits, job 4 the same spec run without a break
     (and without checkpoints, which change nothing it computes)."""
+    at_phase(8, "runner", "tiny")
     db, done = JobsTable(), Completions()
     runner = ClusterRunner(db, done, device=dev)
     cfg = configs.get("tiny").replace(dtype="float32")
@@ -1773,9 +1929,30 @@ def phase_runner(dev) -> dict:
         fail(f"the resumed clone's losses differ from the uninterrupted run's by {loss_err:.3e}")
     if launches != expect:
         fail(f"the runner's jobs launched {launches}, expected {expect}")
-    return {"arch": "tiny via ClusterRunner", "launches": launches, "yield_ms": yield_ms,
-            "step_ms": _steady_ms(whole), "peak_gib": peak / 2**30, "loss_err": loss_err,
+    return {"launches": launches,
             "card": nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")}
+
+
+def card_range(readings: list) -> str:
+    """nvidia-smi's 'clocks.sm, power.draw, power.limit, temperature.gpu'
+    readings of several runs on one line: each field's range (one value
+    when they agree), and the count of runs; the readings as they are when
+    one does not parse (nvidia-smi failed, or printed [N/A])."""
+    rows = [r.split(", ") for r in readings]
+    if not rows or any(len(r) != 4 for r in rows):
+        return "; ".join(readings)
+    parts = []
+    for field in zip(*rows):
+        values = [re.fullmatch(r"([\d.]+)( .+)?", v) for v in field]
+        if not all(values):
+            return "; ".join(readings)
+        nums = sorted(float(m.group(1)) for m in values)
+        unit = values[0].group(2) or ""
+        fmt = "{:.2f}" if "W" in unit else "{:g}"
+        lo, hi = fmt.format(nums[0]), fmt.format(nums[-1])
+        parts.append((lo if lo == hi else f"{lo}-{hi}") + unit)
+    return (f"{parts[0]}, {parts[1]} drawn, limit {parts[2]}, {parts[3]} C "
+            f"({len(readings)} runs)")
 
 
 def significant(x, digits: int = 6):
@@ -1832,24 +2009,29 @@ def _old(ms) -> str:
     return "" if ms is None else f" (old {ms:.4f})"
 
 
-def summary(built: dict, recs: dict, serves: dict, trains: list, runner: dict) -> None:
-    """The run in brief, just before the kernels line."""
+def summary(built: dict, recs: dict) -> None:
+    """The build and the kernels in brief, just before the kernels line (the
+    serving, training and runner numbers are on their phases' lines)."""
     log(f"[summary] card {nvidia_smi('name,power.limit')}; build {built['seconds']:.3f} s")
     smem = dynamic_smem()
-    log("[summary] per kernel: registers, spill bytes, static (+ dynamic) shared memory "
-        "bytes, HMMA, LDGSTS")
-    for name, kernels in built["info"].items():
-        log(f"[summary] {name}: " + "; ".join(
-            f"{fn} {i['registers']}, {i['spill_bytes']}, {i['static_smem']}"
-            + (f" + {smem[fn]}" if fn in smem else "")
-            + f", {i.get('hmma', 0)}, {i.get('ldgsts', 0)}" for fn, i in kernels.items()))
-    rows = [("flash_attention", t) for t in recs["flash"].values()]
-    rows += [("lru_scan", t) for t in recs["lru"].values()] + [("ssd_scan", recs["ssd"])]
+    detail = build.BUILD_DIR / "chip_smoke_build.json"
+    detail.write_text(json.dumps({"info": built["info"], "dynamic_smem": smem}, indent=1))
+    log(f"[summary] per library (each kernel in {os.path.relpath(detail, ROOT)}): kernels, "
+        "registers, spill bytes, HMMA, LDGSTS: " + "; ".join(
+            f"{name} {len(k)}, {min(i['registers'] or 0 for i in k.values())}-"
+            f"{max(i['registers'] or 0 for i in k.values())}, "
+            f"{max(i['spill_bytes'] for i in k.values())}, "
+            f"{sum(i.get('hmma', 0) for i in k.values())}, "
+            f"{sum(i.get('ldgsts', 0) for i in k.values())}"
+            for name, k in built["info"].items())
+        + "; dynamic shared memory " + ", ".join(f"{fn} {b}" for fn, b in smem.items()))
+    rows = {"flash_attention": recs["flash"].values(), "lru_scan": recs["lru"].values(),
+            "ssd_scan": [recs["ssd"]]}
     log("[summary] bf16 kernel ms (old design), share of the bound; plain, library and "
         "bound ms in the kernels line: " + "; ".join(
-            f"{name} {t['shape'][5:].replace('causal B=1 ', '').replace(' window=None', '')} "
-            f"{t['ms']:.4f}{_old(t['old_ms'])}, "
-            f"{t['bound_ms'] / t['ms']:.1%}" for name, t in rows))
+            f"{name} " + ", ".join(f"{t['shape'][5:].replace(' B=1 ', ' ')} "
+                                   f"{t['ms']:.4f}{_old(t['old_ms'])} {t['bound_ms'] / t['ms']:.1%}"
+                                   for t in ts) for name, ts in rows.items()))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for S, t in recs["lru"].items():
         L, V, chunk, carry, apply = recs["lru_launch"][S]
@@ -1858,30 +2040,16 @@ def summary(built: dict, recs: dict, serves: dict, trains: list, runner: dict) -
             f"back to back {t['warm_ms']:.4f}{_old(t['old_warm_ms'])}; CUDA events "
             f"{t['events_ms']:.4f}{_old(t['old_events_ms'])}")
     g = recs["ssd_grad"]
-    log("[summary] gradient rules, ms per call | library | bound")
-    log(f"[summary] ssd_scan (plain recompute) {g['shape']}: {g['ms']:.4f} | none | "
-        f"{g['bound_ms']:.4f} {g['bound_by']}, {g['bound_ms'] / g['ms']:.1%} of bound")
-    for t in recs["flash_grad"]:
-        log(f"[summary] flash_attention (plain recompute) {t['shape']}: {t['ms']:.4f} | "
-            f"SDPA backward {t['library_ms']:.4f} | {t['bound_ms']:.4f} {t['bound_by']}, "
-            f"{t['bound_ms'] / t['ms']:.1%} of bound")
-    for t in recs["lru_grad"]:
-        log(f"[summary] lru_scan (reversed scan) {t['shape']}: {t['ms']:.4f} (autograd "
-            f"through the plain scan {t['plain_ms']:.4f}) | none | {t['bound_ms']:.4f} "
-            f"{t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of bound")
-    log("[summary] serving: tokens/s, prefill ms, decode ms/step, peak GiB, device "
-        "idle, flash + scan of kernel ms: " + "; ".join(
-            f"{arch} {r['tokens_s']:.2f}, {r['prefill_ms']:.3f}, {r['decode_ms']:.3f}, "
-            f"{r['peak_gib']:.3f}, {r['idle']:.1%}, {r['flash_ms']:.3f} + {r['lru_ms']:.3f} "
-            f"of {r['busy_ms']:.3f}" for arch, r in serves.items()))
-    log("[summary] training: ms/step mean, median, tokens/s, peak GiB, losses, device "
-        "idle: " + "; ".join(
-            f"{t['arch']} {t['step_ms']:.3f}, {t['median_ms']:.3f}, {t['tokens_s']:.1f}, "
-            f"{t['peak_gib']:.3f}, {t['losses'][0]:.6f} .. {t['losses'][-1]:.6f}, "
-            f"{t['idle']:.1%}" for t in trains)
-        + f"; {runner['arch']}: {runner['step_ms']:.3f} ms/step, peak "
-        f"{runner['peak_gib']:.3f} GiB, yielded in {runner['yield_ms']:.3f} ms, clone's "
-        f"loss |diff| {runner['loss_err']:.3e}")
+    rules = [f"ssd_scan (plain recompute) {g['shape']}: {g['ms']:.4f} | none | "
+             f"{g['bound_ms']:.4f} {g['bound_by']}"]
+    rules.append("flash_attention (plain recompute) " + ", ".join(
+        f"{t['shape'].replace(' window=None', '')}: {t['ms']:.4f} | SDPA backward "
+        f"{t['library_ms']:.4f} | {t['bound_ms']:.4f} {t['bound_by']}"
+        for t in recs["flash_grad"]))
+    rules += [f"lru_scan (reversed scan) {t['shape']}: {t['ms']:.4f} (autograd through the "
+              f"plain scan {t['plain_ms']:.4f}) | none | {t['bound_ms']:.4f} {t['bound_by']}"
+              for t in recs["lru_grad"]]
+    log("[summary] gradient rules, ms per call | library | bound: " + "; ".join(rules))
 
 
 def main() -> int:
@@ -1911,19 +2079,27 @@ def main() -> int:
               "moonshot-v1-16b-a3b": serve_and_profile(dev, "moonshot-v1-16b-a3b",
                                                        max_len=1024, prompt_range=(100, 340)),
               "qwen2.5-14b": serve_and_profile(dev, "qwen2.5-14b", max_len=1024,
-                                               prompt_range=(100, 340))}
-    log("[serve] card after each run: "
-        + "; ".join(f"{arch} {r['card']}" for arch, r in serves.items()))
+                                               prompt_range=(100, 340)),
+              # 256 zero vision embeddings before each prompt: prefills of
+              # 356-596 positions, 48 flash launches (G=6, D=128) each
+              "internvl2-26b": serve_and_profile(dev, "internvl2-26b", max_len=1024,
+                                                 prompt_range=(100, 340)),
+              # the encoder over 1024 zero speech frames at each prefill: 72
+              # flash launches a prefill, 24 (cross, Sq=1) a decode step
+              "seamless-m4t-large-v2": serve_and_profile(dev, "seamless-m4t-large-v2",
+                                                         max_len=1024, prompt_range=(100, 340))}
+    log(f"[serve] card after each run: {card_range([r['card'] for r in serves.values()])}")
     trains = [train_and_profile(dev, arch) for arch in TRAIN_RUNS]
     runner = phase_runner(dev)
     log("[train] card after each run: "
-        + "; ".join(f"{t['arch']} {t['card']}" for t in trains + [runner]))
+        f"{card_range([t['card'] for t in trains + [runner]])}")
+    at_phase(9, "summary")
 
     def paths(kernel):
         """{path: launches} for each main path whose model has a layer of the
         kernel's kind: the launches of every such run, zeros included (the
         mamba2 prefill's plain scan launches no SSD kernel)."""
-        kinds = {"flash_attention": {"attn", "local_attn"}, "lru_scan": {"rglru"},
+        kinds = {"flash_attention": set(ATTENTION_KINDS), "lru_scan": {"rglru"},
                  "ssd_scan": {"ssm"}}[kernel]
         runs = [(f"{arch} serving", r["cfg"], r) for arch, r in serves.items()]
         runs += [(f"{t['arch']} training", t["cfg"], t) for t in trains]
@@ -1933,9 +2109,9 @@ def main() -> int:
 
     kernels = [
         record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention/kernel.py:79", recs["flash"][(340, 32, 128)],
+               "src/repro/kernels/flash_attention/kernel.py:79", recs["flash"][FLASH_MAIN],
                paths("flash_attention"), gradient_rule=recs["flash_grad"],
-               timings=[t for k, t in recs["flash"].items() if k != (340, 32, 128)]),
+               timings=[t for k, t in recs["flash"].items() if k != FLASH_MAIN]),
         record("lru_scan", "src/repro_torch/csrc/lru_scan.cu",
                "src/repro/kernels/rglru/kernel.py:49", recs["lru"][2500], paths("lru_scan"),
                timings=[t for S, t in recs["lru"].items() if S != 2500],
@@ -1945,7 +2121,7 @@ def main() -> int:
                flops=recs["ssd"]["flops"], bytes=recs["ssd"]["bytes"],
                gradient_rule=recs["ssd_grad"]),
     ]
-    summary(built, recs, serves, trains, runner)
+    summary(built, recs)
     log(f"[time] total {time.perf_counter() - T_START:.1f} s")
     log(nvidia_smi("name,power.limit"))
     log(json.dumps({"kernels": significant(kernels)}))
@@ -1955,4 +2131,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except SystemExit:
+        raise                       # fail() has named the phase already
+    except BaseException as exc:    # noqa: BLE001 — any cause ends the run, named
+        report_exception(exc)
+        code = 1
+    sys.exit(code)

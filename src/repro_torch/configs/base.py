@@ -1,11 +1,10 @@
 """Model configuration: the port's own copy of ``repro.configs.base``.
 
-The fields the ported dense, moe, hybrid and ssm families read, with the
-reference ``ModelConfig``'s names and defaults, so a config maps one to one
-between the two packages. The fields of the families not ported yet
-(encoder-decoder, frontends) come with those families. The parameter
-counts are taken over the port's own ``ParamSpec`` tree (the reference
-counts over its JAX one).
+The fields every family of the reference reads (dense, moe, ssm, hybrid,
+vlm, audio), with the reference ``ModelConfig``'s names and defaults, so a
+config maps one to one between the two packages. The parameter counts are
+taken over the port's own ``ParamSpec`` tree (the reference counts over its
+JAX one).
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ __all__ = ["ModelConfig"]
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | hybrid | ssm (the families ported so far)
+    family: str                     # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -53,7 +52,16 @@ class ModelConfig:
     block_pattern: tuple = ()       # e.g. ("rglru", "rglru", "local_attn")
     lru_width: int = 0
 
+    # encoder-decoder (seamless)
+    encoder_layers: int = 0
+    cross_attention: bool = False
+
+    # modality frontend stub (vlm/audio): precomputed embeddings prepended
+    frontend: str = "none"          # none | vision_stub | audio_stub
+    frontend_tokens: int = 0
+
     # misc
+    mlp_variant: str = "swiglu"     # swiglu | gelu (non-gated)
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -67,6 +75,10 @@ class ModelConfig:
             object.__setattr__(
                 self, "ssm_heads",
                 (self.d_model * self.ssm_expand) // self.ssm_head_dim)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

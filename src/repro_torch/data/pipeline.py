@@ -4,9 +4,9 @@
 Tokens are drawn per (seed, step, host) with numpy's PCG64 and the same
 zipf-ish marginal as the reference, so both packages see the same tokens,
 token for token, and a resumed run sees the batches it would have seen.
-Only the text families' batches are ported (the vlm/audio frontends wait
-for their ROADMAP items). Batches are CPU tensors; the loop moves them to
-the card.
+The vlm and audio families also get their frontend's embeddings from the
+same generator, after the tokens, as the reference draws them. Batches are
+CPU tensors; the loop moves them to the card.
 """
 
 from __future__ import annotations
@@ -18,20 +18,31 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch.models.model import FRONTEND_KEYS
+
 __all__ = ["make_batch", "synthetic_batches", "Prefetcher", "data_iterator"]
 
 
 def make_batch(cfg, global_batch: int, seq_len: int, *, seed: int, step: int,
                host: int = 0, num_hosts: int = 1) -> dict:
     """One batch shard for `host` of `num_hosts` (full batch if 1 host):
-    {"tokens": (global_batch // num_hosts, seq_len) int64}."""
+    {"tokens": (b, seq_len) int64} with b = global_batch // num_hosts; for
+    vlm the tokens are seq_len - frontend_tokens long and ``vision_embeds``
+    (b, frontend_tokens, d_model) float32 come with them, for audio
+    ``audio_embeds`` of that shape."""
     if global_batch % num_hosts:
         raise ValueError(f"global_batch {global_batch} is not a multiple of "
                          f"num_hosts {num_hosts}")
     local = global_batch // num_hosts
     rng = np.random.Generator(np.random.PCG64([seed, step, host]))
-    z = rng.zipf(1.3, size=(local, seq_len)).astype(np.int64)
-    return {"tokens": torch.from_numpy((z % (cfg.vocab_size - 2)) + 1)}
+    F = cfg.frontend_tokens
+    text = seq_len - F if cfg.family == "vlm" else seq_len
+    z = rng.zipf(1.3, size=(local, text)).astype(np.int64)
+    batch = {"tokens": torch.from_numpy((z % (cfg.vocab_size - 2)) + 1)}
+    if cfg.family in FRONTEND_KEYS:
+        batch[FRONTEND_KEYS[cfg.family]] = torch.from_numpy(
+            rng.standard_normal((local, F, cfg.d_model), dtype=np.float32) * 0.02)
+    return batch
 
 
 def synthetic_batches(cfg, global_batch: int, seq_len: int, *, seed: int = 0,

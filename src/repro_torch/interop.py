@@ -3,7 +3,9 @@
 A JAX tree here is a nested dict of arrays (``jax.Array`` or numpy; anything
 ``np.asarray`` takes) with the same keys as the port's trees, which keep the
 reference's layouts (stacked ``(L, ...)`` leaves, or unrolled ``layer_{i}``
-subtrees). This module imports no JAX: it goes through
+subtrees; an encoder-decoder's ``encoder`` subtree, its cross-attention
+``cross`` leaves and its ``enc_k``/``enc_v`` cache leaves alike, since any
+nested dict is carried key for key). This module imports no JAX: it goes through
 numpy, so the tests can hand both packages the same weights.
 """
 

@@ -8,13 +8,20 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch moonshot-v1-16b-a3b --full --max-len 1024
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \\
+        --full --max-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch seamless-m4t-large-v2 --full --max-len 1024
 
 Runs on the CUDA card by default, with weights made on the card from
 ``--seed`` in the config's dtype (bf16 for the served archs; ``--full`` is
 the published width, otherwise the smoke width). One card holds
 moonshot-v1-16b-a3b (52.3 GiB of bf16 weights), qwen2.5-14b and
-mistral-nemo-12b at full width; mixtral-8x22b and llama3-405b serve at
-smoke width until the port shards a model (ROADMAP.md item 9).
+mistral-nemo-12b at full width, and internvl2-26b (37.0 GiB; each prompt
+follows 256 zero vision embeddings, so give it ``--max-len`` room for them)
+and seamless-m4t-large-v2 (its encoder runs over 1024 zero speech-frame
+embeddings at each prefill); mixtral-8x22b and llama3-405b serve at smoke
+width until the port shards a model (ROADMAP.md item 9).
 ``--device cpu`` serves on the CPU in float32, as the reference launcher
 does off the accelerator. With no card and no ``--device cpu`` it raises.
 """

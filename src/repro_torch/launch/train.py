@@ -22,15 +22,18 @@ it; every other arch at its smoke width):
         --device cpu --steps 6 --global-batch 4 --seq-len 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b \\
         --device cpu --steps 6 --global-batch 4 --seq-len 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-26b \\
+        --device cpu --steps 6 --global-batch 4 --seq-len 64
 
 Runs on the CUDA card by default; with no card and no ``--device cpu`` it
 raises. ``--full`` is the published width; without it tiny still trains its
 published config (as in the reference) and every other arch its smoke
 config.
 ``--microbatches`` splits each global batch and averages the gradients.
-Re-running with the same ``--ckpt-dir`` resumes from the latest step. The
-dense, moe, hybrid and ssm families train; the others raise, naming their
-ROADMAP.md item.
+Re-running with the same ``--ckpt-dir`` resumes from the latest step.
+Every arch of the reference trains (internvl2-26b and seamless-m4t-large-v2
+with their frontend's embeddings drawn beside the tokens, as the
+reference's pipeline draws them).
 """
 
 from __future__ import annotations

@@ -1,5 +1,7 @@
-"""Attention blocks: GQA causal / sliding-window self-attention and its
-one-token decode step (port of ``repro.models.attention``).
+"""Attention blocks: GQA causal / sliding-window / bidirectional
+self-attention, its one-token decode step, and the decoder's
+cross-attention over an encoder's output (port of
+``repro.models.attention``).
 
 Layout as in the reference: activations (B, S, D), projections keep heads
 explicit ((B, S, H, Dh)), KV caches are (B, Smax, K, Dh) and sliding-window
@@ -13,10 +15,13 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import ParamSpec, apply_rope, rotary_embedding
 
-__all__ = ["attn_specs", "attn_apply", "attn_decode"]
+__all__ = ["attn_specs", "attn_apply", "attn_decode", "cross_memory_kv",
+           "cross_attn_apply"]
 
 
-def attn_specs(cfg) -> dict:
+def attn_specs(cfg, *, cross: bool = False) -> dict:
+    """Projection weights; the QKV biases (``qkv_bias``) only off the
+    cross-attention, as in the reference."""
     D, H, K, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = {
         "wq": ParamSpec((D, H, Dh), ("embed", "heads", "head")),
@@ -25,7 +30,7 @@ def attn_specs(cfg) -> dict:
         "wo": ParamSpec((H, Dh, D), ("heads", "head", "embed"),
                         fan_in_axes=(0, 1)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         s["bq"] = ParamSpec((H, Dh), ("heads", "head"), init="zeros")
         s["bk"] = ParamSpec((K, Dh), ("kv_heads", "head"), init="zeros")
         s["bv"] = ParamSpec((K, Dh), ("kv_heads", "head"), init="zeros")
@@ -55,17 +60,35 @@ def _qkv(p, x, cfg):
     return q, k, v
 
 
-def attn_apply(p: dict, x: torch.Tensor, cfg, *, window: int | None = None):
-    """Full-sequence (prefill) causal self-attention. x: (B, S, D).
-    Returns the output and the rotated (k, v) for the decode cache."""
+def attn_apply(p: dict, x: torch.Tensor, cfg, *, causal: bool = True,
+               window: int | None = None):
+    """Full-sequence (train / prefill) self-attention, causal unless the
+    caller says otherwise (the encoder). x: (B, S, D). Returns the output
+    and the rotated (k, v) for the decode cache."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     positions = torch.arange(S, device=x.device)[None, :]
     sin, cos = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
-    o = flash_attention(q, k, v, causal=True, window=window)
+    o = flash_attention(q, k, v, causal=causal, window=window)
     return _proj_out(o, p["wo"]), (k, v)
+
+
+def cross_memory_kv(p: dict, enc_out: torch.Tensor):
+    """Per-layer cross-attention K/V over the encoder's output (B, F, D):
+    (B, F, K, Dh) each, no RoPE."""
+    return _proj_in(enc_out, p["wk"]), _proj_in(enc_out, p["wv"])
+
+
+def cross_attn_apply(p: dict, x: torch.Tensor, memory, cfg) -> torch.Tensor:
+    """Decoder cross-attention, not causal, no RoPE. ``memory`` is either
+    the encoder's output (B, F, D), whose K/V are computed here, or a
+    precomputed (mk, mv) pair (the prefill's, or the decode cache's)."""
+    mk, mv = memory if isinstance(memory, tuple) else cross_memory_kv(p, memory)
+    q = _proj_in(x, p["wq"])
+    o = flash_attention(q, mk.to(x.dtype), mv.to(x.dtype), causal=False)
+    return _proj_out(o, p["wo"])
 
 
 def attn_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,

@@ -1,14 +1,18 @@
 """Model assembly: param shapes, the full-sequence forward and loss
-(training), and the prefill and decode steps (serving), of the dense, moe,
-hybrid and ssm families. Port of ``repro.models.model``.
+(training), and the prefill and decode steps (serving), of every family of
+the reference: dense, moe, ssm, hybrid, vlm (precomputed vision embeddings
+prepended to the text) and audio (an encoder over precomputed speech-frame
+embeddings, which the decoder's cross-attention reads). Port of
+``repro.models.model``.
 
 Parameters and caches keep the reference's layouts, so JAX trees map one to
 one (see :mod:`repro_torch.interop`). When every layer has one kind (and
 ``scan_layers``), each per-layer leaf is stacked with a leading
 ``num_layers`` dim and ``lax.scan`` over layers becomes a Python loop over
 the layer index. Otherwise (recurrentgemma: rglru, rglru, local_attn) the
-stack is unrolled into ``{"layer_{i}": ...}`` subtrees, one per layer. The
-decode cache is updated in place.
+stack is unrolled into ``{"layer_{i}": ...}`` subtrees, one per layer. An
+encoder-decoder adds an ``encoder`` subtree ({"layers": stacked
+``enc_attn`` blocks, "final_norm"}). The decode cache is updated in place.
 """
 
 from __future__ import annotations
@@ -22,9 +26,12 @@ from repro_torch.models.rglru import rglru_cache_shapes
 from repro_torch.models.ssm import ssm_cache_shapes
 
 __all__ = ["param_shapes", "init_params", "forward", "loss_fn", "cache_shapes",
-           "init_cache", "prefill", "decode_step", "compute_dtype", "uniform_scan"]
+           "init_cache", "prefill", "decode_step", "compute_dtype", "uniform_scan",
+           "FRONTEND_KEYS"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# The batch key of each family's precomputed frontend embeddings (B, F, D).
+FRONTEND_KEYS = {"vlm": "vision_embeds", "audio": "audio_embeds"}
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -38,7 +45,15 @@ def uniform_scan(cfg) -> bool:
 
 
 def _layer(tree: dict, i: int) -> dict:
-    return {k: t[i] for k, t in tree.items()}
+    """Layer ``i`` of a stacked (L, ...) tree (the cross block's ``cross``
+    subtree is stacked too)."""
+    return {k: _layer(t, i) if isinstance(t, dict) else t[i] for k, t in tree.items()}
+
+
+def _stacked(specs: dict, n: int) -> dict:
+    """A block's ParamSpec tree with a leading layer dim of ``n``."""
+    return {k: _stacked(s, n) if isinstance(s, dict) else s.with_prefix(n)
+            for k, s in specs.items()}
 
 
 # --------------------------------------------------------------------- specs
@@ -53,10 +68,16 @@ def param_shapes(cfg) -> dict:
         specs["unembed"] = ParamSpec((D, V), ("embed", "vocab"))
     if uniform_scan(cfg):
         block = tfm.block_specs(cfg, kinds[0])
-        specs["layers"] = {k: s.with_prefix(cfg.num_layers) for k, s in block.items()}
+        specs["layers"] = _stacked(block, cfg.num_layers)
     else:
         specs["layers"] = {f"layer_{i}": tfm.block_specs(cfg, k)
                            for i, k in enumerate(kinds)}
+    if cfg.is_encdec:
+        enc_block = tfm.block_specs(cfg, "enc_attn")
+        specs["encoder"] = {
+            "layers": _stacked(enc_block, cfg.encoder_layers),
+            "final_norm": ParamSpec((D,), ("embed",), init="ones"),
+        }
     return specs
 
 
@@ -67,7 +88,7 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
 
 
 # -------------------------------------------------------------------- trunk
-def _stack_apply(layers_p, x, cfg, kinds) -> tuple[torch.Tensor, torch.Tensor]:
+def _stack_apply(layers_p, x, cfg, kinds, *, memory=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the layer stack over the full sequence. Returns (x, aux): the
     layers' MoE aux losses summed in f32. A stacked (L, ...) leaf is indexed
     per layer, so its gradient lands in the stacked leaf."""
@@ -75,17 +96,37 @@ def _stack_apply(layers_p, x, cfg, kinds) -> tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(kinds):
         p_i = _layer(layers_p, i) if stacked else layers_p[f"layer_{i}"]
-        x, a = tfm.block_apply(p_i, x, cfg, kind)
+        x, a = tfm.block_apply(p_i, x, cfg, kind, memory=memory)
         aux = aux + a
     return x, aux
+
+
+def _encoder_apply(params, cfg, embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder over the frontend's embeddings (B, F, D): the stacked
+    ``enc_attn`` blocks (bidirectional), then its final norm."""
+    enc = params["encoder"]
+    x = embeds
+    for i in range(cfg.encoder_layers):
+        x, _ = tfm.block_apply(_layer(enc["layers"], i), x, cfg, "enc_attn")
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _memory(params, cfg, batch, dtype):
+    """The encoder's output for an encoder-decoder (from
+    ``batch["audio_embeds"]``), else None."""
+    if not cfg.is_encdec:
+        return None
+    return _encoder_apply(params, cfg, batch[FRONTEND_KEYS["audio"]].to(dtype))
 
 
 def forward(params, cfg, batch) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits (B, S, V) float32, aux loss, a
     0-d float32 tensor: the MoE layers' load-balancing loss, 0 without
-    experts), as the reference's forward does."""
+    experts), as the reference's forward does. For vlm S counts the vision
+    prefix too."""
     x = _embed_inputs(params, cfg, batch)
-    x, aux = _stack_apply(params["layers"], x, cfg, tfm.layer_kinds(cfg))
+    memory = _memory(params, cfg, batch, x.dtype)
+    x, aux = _stack_apply(params["layers"], x, cfg, tfm.layer_kinds(cfg), memory=memory)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), aux
 
@@ -94,10 +135,12 @@ def loss_fn(params, cfg, batch) -> torch.Tensor:
     """Next-token cross entropy of tokens[:, 1:], in float32, plus the MoE
     aux loss: the mean over the B x (S - 1) predictions, or, with
     ``batch["loss_mask"]`` (B, S), the sum over the predictions whose target
-    is masked in, divided by max(that mask's sum, 1), as the reference does."""
+    is masked in, divided by max(that mask's sum, 1), as the reference does.
+    vlm skips the logits of the vision prefix."""
     logits, aux = forward(params, cfg, batch)
+    prefix = cfg.frontend_tokens if cfg.family == "vlm" else 0
     tokens = batch["tokens"]
-    preds = logits[:, :tokens.shape[1] - 1]
+    preds = logits[:, prefix:prefix + tokens.shape[1] - 1]
     nll = F.cross_entropy(preds.reshape(-1, preds.shape[-1]),
                           tokens[:, 1:].reshape(-1).long(), reduction="none")
     mask = batch.get("loss_mask")
@@ -117,12 +160,17 @@ def _layer_cache_shapes(cfg, kind: str, batch: int, max_len: int, dtype) -> dict
     if kind == "local_attn" or cfg.attention == "swa":
         slots = min(cfg.window, max_len)
     shape = (batch, slots, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": (shape, dtype), "v": (shape, dtype)}
+    c = {"k": (shape, dtype), "v": (shape, dtype)}
+    if kind == "cross":
+        enc = (batch, cfg.frontend_tokens, cfg.num_kv_heads, cfg.head_dim)
+        c.update(enc_k=(enc, dtype), enc_v=(enc, dtype))
+    return c
 
 
 def cache_shapes(cfg, batch: int, max_len: int) -> dict:
-    """Nested {name: (shape, dtype)} decode-cache description; K/V and the
-    conv tails in the compute dtype, the RG-LRU and SSM states in f32."""
+    """Nested {name: (shape, dtype)} decode-cache description; K/V (the
+    cross-attention's ``enc_k``/``enc_v`` too) and the conv tails in the
+    compute dtype, the RG-LRU and SSM states in f32."""
     dtype = compute_dtype(cfg)
     kinds = tfm.layer_kinds(cfg)
     if uniform_scan(cfg):
@@ -146,7 +194,13 @@ def init_cache(cfg, batch: int, max_len: int, device="cpu") -> dict:
 
 # ------------------------------------------------------------ embed/unembed
 def _embed_inputs(params, cfg, batch) -> torch.Tensor:
-    return take_embedding(params["embed"], batch["tokens"], compute_dtype(cfg))
+    """Token embeddings in the compute dtype; for vlm the batch's
+    ``vision_embeds`` (B, F, D) come first."""
+    dt = compute_dtype(cfg)
+    x = take_embedding(params["embed"], batch["tokens"], dt)
+    if cfg.family == "vlm":
+        x = torch.cat([batch[FRONTEND_KEYS["vlm"]].to(dt), x], dim=1)
+    return x
 
 
 def _unembed(params, cfg, x) -> torch.Tensor:
@@ -179,17 +233,21 @@ def decode_step(params, cfg, cache, tokens, pos):
 
 # ------------------------------------------------------------------ prefill
 def prefill(params, cfg, batch, max_len: int):
-    """Process the prompt, build the decode cache.
+    """Process the prompt (after the vision prefix for vlm), build the
+    decode cache; an encoder-decoder first encodes ``batch["audio_embeds"]``
+    and keeps each layer's cross-attention K/V in the cache.
     Returns (last_logits (B, V) float32, cache in :func:`cache_shapes`'s
     layout)."""
     kinds = tfm.layer_kinds(cfg)
     x = _embed_inputs(params, cfg, batch)
+    memory = _memory(params, cfg, batch, x.dtype)
     layers_p = params["layers"]
     stacked = uniform_scan(cfg)
     caches = {}
     for i, kind in enumerate(kinds):
         p_i = _layer(layers_p, i) if stacked else layers_p[f"layer_{i}"]
-        x, caches[f"layer_{i}"] = tfm.block_prefill(p_i, x, cfg, kind, max_len)
+        x, caches[f"layer_{i}"] = tfm.block_prefill(p_i, x, cfg, kind, max_len,
+                                                    memory=memory)
     if stacked:
         caches = {name: torch.stack([caches[f"layer_{i}"][name]
                                      for i in range(cfg.num_layers)])

@@ -1,22 +1,24 @@
 """Block assembly: norm → mixer → residual [→ norm → FFN/MoE → residual]
 (port of ``repro.models.transformer``).
 
-Layer kinds ported so far:
+One block type per layer kind, as in the reference:
   attn        causal self-attention (full or sliding window per config) +
-              FFN, or MoE when the config has experts; training forward,
-              prefill and decode
-  local_attn  sliding-window attention (hybrid archs) + FFN; training
-              forward, prefill and decode
-  rglru       RG-LRU recurrent mixer + FFN; training forward, prefill and
-              decode
-  ssm         Mamba-2 SSD mixer (no FFN — the mamba block subsumes it);
-              training forward, prefill and decode
+              FFN, or MoE when the config has experts
+  local_attn  sliding-window attention (hybrid archs) + FFN
+  rglru       RG-LRU recurrent mixer + FFN
+  ssm         Mamba-2 SSD mixer (no FFN — the mamba block subsumes it)
+  enc_attn    bidirectional self-attention (encoder) + FFN
+  cross       causal self-attention + cross-attention over the encoder's
+              output + FFN (decoder of an encoder-decoder)
+Each kind has its training forward, prefill and decode, except
+``enc_attn``: the encoder runs through the full-sequence block only (once a
+prefill) and keeps no cache of its own. The FFN is SwiGLU, or a tanh-gelu
+MLP with ``mlp_variant="gelu"``.
 
 The full-sequence block returns (x, aux): aux is the MoE layer's
 load-balancing loss, 0 for every other layer; prefill and decode drop it,
-as the reference does. The other kinds of the reference (enc_attn, cross)
-and the gelu MLP belong to ROADMAP items not done yet; asking for them
-raises ``NotImplementedError`` naming the item.
+as the reference does. A family the reference does not have raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,32 +35,33 @@ from repro_torch.models.layers import ParamSpec, rms_norm, swiglu
 __all__ = ["layer_kinds", "mlp_specs", "block_specs", "mlp_apply",
            "block_apply", "block_prefill", "block_decode"]
 
-_ROADMAP = {
-    "vlm": "Queue 1 item 4 (vlm family)", "audio": "Queue 1 item 6 (audio family)",
-}
-_KINDS = ("attn", "local_attn", "rglru", "ssm")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+_KINDS = ("attn", "local_attn", "rglru", "ssm", "enc_attn", "cross")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md {item}")
-
-
-def layer_kinds(cfg) -> list[str]:
+def layer_kinds(cfg, *, encoder: bool = False) -> list[str]:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported (the port has {_FAMILIES}); "
+            "see ROADMAP.md Queue 1")
+    if encoder:
+        return ["enc_attn"] * cfg.encoder_layers
     if cfg.family == "ssm":
         return ["ssm"] * cfg.num_layers
     if cfg.family == "hybrid":
         pat = list(cfg.block_pattern)
         return [pat[i % len(pat)] for i in range(cfg.num_layers)]
-    if cfg.family not in ("dense", "moe"):
-        raise _not_ported(f"family {cfg.family!r}",
-                          _ROADMAP.get(cfg.family, "Queue 1"))
+    if cfg.is_encdec:
+        return ["cross"] * cfg.num_layers
     return ["attn"] * cfg.num_layers
 
 
 # ------------------------------------------------------------------- specs
 def mlp_specs(cfg) -> dict:
     D, F = cfg.d_model, cfg.d_ff
+    if cfg.mlp_variant == "gelu":
+        return {"wi": ParamSpec((D, F), ("embed", "ff")),
+                "wo_mlp": ParamSpec((F, D), ("ff", "embed"))}
     return {"wi_gate": ParamSpec((D, F), ("embed", "ff")),
             "wi_up": ParamSpec((D, F), ("embed", "ff")),
             "wo_mlp": ParamSpec((F, D), ("ff", "embed"))}
@@ -66,7 +69,7 @@ def mlp_specs(cfg) -> dict:
 
 def block_specs(cfg, kind: str) -> dict:
     if kind not in _KINDS:
-        raise _not_ported(f"layer kind {kind!r}", "Queue 1")
+        raise ValueError(f"unknown layer kind {kind!r}")
     D = cfg.d_model
     s: dict = {"pre_norm": ParamSpec((D,), ("embed",), init="ones")}
     if kind == "ssm":
@@ -76,6 +79,9 @@ def block_specs(cfg, kind: str) -> dict:
         s.update(rglru_mod.rglru_specs(cfg))
     else:
         s.update(attn.attn_specs(cfg))
+    if kind == "cross":
+        s["cross_norm"] = ParamSpec((D,), ("embed",), init="ones")
+        s["cross"] = attn.attn_specs(cfg, cross=True)
     s["mlp_norm"] = ParamSpec((D,), ("embed",), init="ones")
     s.update(moe_mod.moe_specs(cfg) if _is_moe(cfg, kind) else mlp_specs(cfg))
     return s
@@ -83,7 +89,10 @@ def block_specs(cfg, kind: str) -> dict:
 
 # ------------------------------------------------------------------- apply
 def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    h = swiglu(x @ p["wi_gate"].to(x.dtype), x @ p["wi_up"].to(x.dtype))
+    if cfg.mlp_variant == "gelu":
+        h = rglru_mod.gelu(x @ p["wi"].to(x.dtype))
+    else:
+        h = swiglu(x @ p["wi_gate"].to(x.dtype), x @ p["wi_up"].to(x.dtype))
     return h @ p["wo_mlp"].to(x.dtype)
 
 
@@ -92,7 +101,7 @@ def _is_moe(cfg, kind: str) -> bool:
 
 
 def _ffn(p: dict, x: torch.Tensor, cfg, kind: str):
-    """Norm → SwiGLU MLP or MoE → residual. Returns (x, aux): the MoE's aux
+    """Norm → MLP or MoE → residual. Returns (x, aux): the MoE's aux
     loss as a 0-d f32 tensor, or 0.0 for the MLP (no tensor is made for a
     value that prefill and decode drop)."""
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
@@ -108,25 +117,37 @@ def _window_for(cfg, kind: str) -> int | None:
     return None
 
 
-# ------------------------------------------------------------------- apply
-def block_apply(p: dict, x: torch.Tensor, cfg, kind: str):
-    """Train/eval full-sequence block. Returns (x, aux loss): a 0-d f32
-    tensor from an MoE layer, else 0.0."""
+def _cross(p: dict, x: torch.Tensor, memory, cfg) -> torch.Tensor:
+    """Norm → cross-attention over ``memory`` → residual."""
+    hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+    return x + attn.cross_attn_apply(p["cross"], hc, memory, cfg)
+
+
+def block_apply(p: dict, x: torch.Tensor, cfg, kind: str, *, memory=None):
+    """Train/eval full-sequence block. ``memory`` is the encoder's output
+    (B, F, D), which a ``cross`` block attends to. Returns (x, aux loss): a
+    0-d f32 tensor from an MoE layer, else 0.0."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if kind == "ssm":
         return x + ssm_mod.ssm_apply(p, h, cfg), 0.0
     if kind == "rglru":
         x = x + rglru_mod.rglru_apply(p, h, cfg)
     else:
-        x = x + attn.attn_apply(p, h, cfg, window=_window_for(cfg, kind))[0]
+        x = x + attn.attn_apply(p, h, cfg, causal=kind != "enc_attn",
+                                window=_window_for(cfg, kind))[0]
+        if kind == "cross":
+            x = _cross(p, x, memory, cfg)
     return _ffn(p, x, cfg, kind)
 
 
 # ------------------------------------------------------------------ prefill
-def block_prefill(p: dict, x: torch.Tensor, cfg, kind: str, max_len: int):
+def block_prefill(p: dict, x: torch.Tensor, cfg, kind: str, max_len: int, *,
+                  memory=None):
     """Prompt pass of one block; also returns this layer's decode cache:
     K/V laid into ``max_len`` slots (``min(window, max_len)`` for a sliding
-    window), or the conv tail and last state of a recurrent mixer."""
+    window), plus for a ``cross`` block the cross-attention K/V of the
+    encoder's output ``memory`` (``enc_k``, ``enc_v``: (B, F, K, Dh)), or
+    the conv tail and last state of a recurrent mixer."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if kind == "ssm":
         out, cache = _ssm_prefill(p, h, cfg)
@@ -138,6 +159,10 @@ def block_prefill(p: dict, x: torch.Tensor, cfg, kind: str, max_len: int):
     out, (k, v) = attn.attn_apply(p, h, cfg, window=window)
     x = x + out
     cache = _kv_to_cache(k, v, max_len if window is None else min(window, max_len))
+    if kind == "cross":
+        mk, mv = attn.cross_memory_kv(p["cross"], memory)
+        x = _cross(p, x, (mk, mv), cfg)
+        cache.update(enc_k=mk, enc_v=mv)
     return _ffn(p, x, cfg, kind)[0], cache
 
 
@@ -186,8 +211,9 @@ def _rglru_prefill(p: dict, h: torch.Tensor, cfg):
 # ------------------------------------------------------------------- decode
 def block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                  cfg, kind: str) -> torch.Tensor:
-    """One-token step. x: (B, 1, D); ``cache`` (this layer's {"k", "v"},
-    {"conv", "h"} or {"conv", "state"}) is updated in place. Returns x."""
+    """One-token step. x: (B, 1, D); ``cache`` (this layer's {"k", "v"}
+    (and {"enc_k", "enc_v"}, read only, for a ``cross`` block), {"conv",
+    "h"} or {"conv", "state"}) is updated in place. Returns x."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if kind == "ssm":
         return x + ssm_mod.ssm_decode(p, h, cache, cfg)
@@ -196,4 +222,6 @@ def block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     else:
         x = x + attn.attn_decode(p, h, cache["k"], cache["v"], pos, cfg,
                                  window=_window_for(cfg, kind))
+        if kind == "cross":
+            x = _cross(p, x, (cache["enc_k"], cache["enc_v"]), cfg)
     return _ffn(p, x, cfg, kind)[0]

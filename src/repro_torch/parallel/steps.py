@@ -50,11 +50,12 @@ def make_train_step(cfg, *, opt: OptConfig | None = None, microbatches: int = 1)
     ``grad_norm`` and ``lr`` as 0-d f32 tensors on the device: reading them
     is the only synchronisation, and the caller chooses when.
 
-    The dense, moe, hybrid and ssm families train; on the card each kernel's
+    Every family trains: a vlm batch carries ``vision_embeds`` and an audio
+    batch ``audio_embeds`` beside the tokens (split into microbatches along
+    with them), and :func:`M.loss_fn` reads them. On the card each kernel's
     autograd Function gives its gradient (flash attention and the SSD scan
     by a plain recompute, the RG-LRU scan by a reversed scan through its
-    kernel). A family not ported yet raises from ``layer_kinds``, naming its
-    ROADMAP item."""
+    kernel). A family the port does not have raises from ``layer_kinds``."""
     tfm.layer_kinds(cfg)
     opt = opt or OptConfig()
 

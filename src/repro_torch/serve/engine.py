@@ -7,7 +7,8 @@ of the batched cache (stacked (L, B, ...) leaves, or (B, ...) leaves per
 unrolled layer); every ``step()`` advances all active slots
 by one token, each at its own position. Finished slots free at once and the
 next request is admitted. Decoding is greedy (first index on ties, as
-``jnp.argmax``).
+``jnp.argmax``). A vlm or audio prefill gets zero frontend embeddings, as
+in the reference; a vlm slot's positions count the vision prefix.
 """
 
 from __future__ import annotations
@@ -84,18 +85,28 @@ class ServeEngine:
                 else:
                     full[:, b] = row[:, 0]
 
+    def prefill_batch(self, prompt: list[int]) -> dict:
+        """A batch-1 prefill input: the prompt's tokens and, for vlm or
+        audio, zero frontend embeddings (1, frontend_tokens, d_model) in
+        the compute dtype."""
+        batch = {"tokens": torch.tensor([prompt], dtype=torch.long, device=self.device)}
+        if self.cfg.family in M.FRONTEND_KEYS:
+            batch[M.FRONTEND_KEYS[self.cfg.family]] = torch.zeros((1, self.cfg.frontend_tokens, self.cfg.d_model),
+                                          dtype=M.compute_dtype(self.cfg), device=self.device)
+        return batch
+
     def _admit(self) -> None:
         for slot_id, slot in enumerate(self.slots):
             if slot.active or not self.queue:
                 continue
             req = self.queue.pop(0)
-            tokens = torch.tensor([req.prompt], dtype=torch.long, device=self.device)
-            logits, row_cache = self.prefill(self.params, {"tokens": tokens})
+            logits, row_cache = self.prefill(self.params, self.prefill_batch(req.prompt))
             self._splice(row_cache, slot_id)
             first = int(torch.argmax(logits[0]))
             req.generated.append(first)
+            F = self.cfg.frontend_tokens if self.cfg.family == "vlm" else 0
             slot.active, slot.rid = True, req.rid
-            slot.pos = len(req.prompt)      # next write position
+            slot.pos = F + len(req.prompt)  # next write position
             slot.budget = req.max_new_tokens - 1
             if slot.budget <= 0 or first == req.eos_id:
                 req.done, slot.active = True, False

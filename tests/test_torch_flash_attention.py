@@ -50,6 +50,8 @@ CASES = [
     (1, 100, 150, 4, 2, 32, False, None),    # ragged, Sq != Sk, non-causal
     (1, 200, 200, 2, 1, 256, True, 64),      # recurrentgemma heads: MQA, D=256, window
     (2, 45, 45, 8, 2, 8, True, None),        # llama3-smoke heads: D=8
+    (1, 100, 256, 4, 4, 64, False, None),    # cross-attention at prefill: Sq < Sk
+    (4, 1, 256, 4, 4, 64, False, None),      # cross-attention at decode: Sq = 1
 ]
 
 
@@ -184,6 +186,21 @@ def test_tensor_core_rounding_stays_inside_the_card_tolerance(B, S, H, K, D, win
     ref = attention_ref(q, k, v, causal=True, window=window)
     out = _flash_tc_emulation(q, k, v, causal=True, window=window, bk=bk)
     assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,causal", [(1, 1024, 1024, 4, False),
+                                              (1, 340, 1024, 4, False),
+                                              (4, 1, 1024, 4, False)])
+def test_tensor_core_rounding_at_encoder_and_cross_attention_shapes(B, Sq, Sk, H, causal):
+    """The bf16 route at seamless-m4t-large-v2's shapes (D=64, fewer heads):
+    the encoder (not causal, 1024 x 1024), cross-attention at prefill (Sq <
+    Sk, not causal) and at decode (Sq = 1), against attention_ref under
+    chip_smoke.py's bf16 tolerance; every key is kept, so every kv tile adds
+    to each row's sums."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _inputs(B, Sq, Sk, H, H, 64, seed=Sq))
+    ref = attention_ref(q, k, v, causal=causal, window=None)
+    out = _flash_tc_emulation(q, k, v, causal=causal, window=None, bk=64)
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
 
 

@@ -2,10 +2,10 @@
 with ``repro_torch.interop``): parameter tree shapes and count, prefill
 logits and cache, decode steps at mixed per-row positions, the ring roll of
 a prompt longer than the cache, and the port's own seeded init statistics;
-the first train step of the dense, hybrid and moe families against the JAX
-train step; mamba2's prefill, decode and cache; attention whose head_dim is
-not d_model // num_heads; and the paths not ported yet, which raise naming
-their ROADMAP item."""
+the first train step of the dense, hybrid, moe, vlm and audio families
+against the JAX train step; mamba2's prefill, decode and cache; attention
+whose head_dim is not d_model // num_heads; and a family the port does not
+have, which raises naming ROADMAP.md."""
 
 import numpy as np
 import pytest
@@ -144,8 +144,9 @@ def test_interop_carries_bf16_bits_and_back():
 
 
 def test_other_families_raise_not_implemented():
-    """The moe family is ported (ROADMAP.md item 5); audio is not yet."""
-    cfg = tconfigs.get_smoke("granite-8b").replace(family="audio")
+    """Every family of the reference is ported (audio last, ROADMAP.md item
+    6); a family that no config has raises."""
+    cfg = tconfigs.get_smoke("granite-8b").replace(family="diffusion")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.param_shapes(cfg)
 
@@ -191,16 +192,22 @@ def test_mamba2_serving_raises_not_implemented():
 
 def _first_step_matches_jax(arch):
     """The port's first train step against the JAX train step's, on carried
-    weights and the same tokens: loss, grad_norm and lr."""
+    weights and the same batch (tokens, and a vlm's or audio arch's frontend
+    embeddings): loss, grad_norm and lr."""
     jcfg = jconfigs.get_smoke(arch).replace(dtype="float32")
     tcfg = tconfigs.get_smoke(arch).replace(dtype="float32")
     jstate = jax_init_state(jcfg, jax.random.PRNGKey(0))
     tstate = interop.to_torch(jstate)
-    tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 40)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, jcfg.vocab_size, (2, 40)).astype(np.int32)}
+    frontend = {"vlm": "vision_embeds", "audio": "audio_embeds"}.get(jcfg.family)
+    if frontend:
+        batch[frontend] = 0.02 * rng.standard_normal(
+            (2, jcfg.frontend_tokens, jcfg.d_model)).astype(np.float32)
     mesh = Mesh(np.array(jax.devices()).reshape(1, 1), ("data", "model"))
     _, jm = jax_make_train_step(jcfg, mesh, shd.make_rules(multi_pod=False))(
-        jstate, {"tokens": jnp.asarray(tokens)})
-    tstate, tm = make_train_step(tcfg)(tstate, {"tokens": torch.from_numpy(tokens)})
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    tstate, tm = make_train_step(tcfg)(tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
     for key in ("loss", "grad_norm", "lr"):
         np.testing.assert_allclose(tm[key].item(), float(jm[key]), **TOL, err_msg=key)
     assert int(tstate["step"]) == 1
@@ -219,17 +226,17 @@ def test_make_train_step_refuses_dense_and_hybrid(arch):
                                          ("vlm", "item 4 \\(vlm family\\)"),
                                          ("audio", "item 6 \\(audio family\\)")])
 def test_make_train_step_refuses_unported_families(family, item):
-    """The moe case dates from before ROADMAP.md item 5, when the family was
-    refused. Now it is that item's check: the first train step of
-    mixtral-smoke and moonshot-smoke (loss with the aux loss, grad_norm)
-    matches the JAX train step's. vlm and audio still refuse."""
-    if family == "moe":
-        for arch in ("mixtral-8x22b", "moonshot-v1-16b-a3b"):
-            _first_step_matches_jax(arch)
-        return
-    cfg = tconfigs.get_smoke("granite-8b").replace(family=family)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        make_train_step(cfg)
+    """The name and cases date from before ROADMAP.md items 5 (moe), 4
+    (vlm) and 6 (audio), when make_train_step refused these families. Now
+    each case is its item's check: the first train step (loss, with the aux
+    loss for moe; grad_norm; lr) matches the JAX train step's, for
+    mixtral-smoke and moonshot-smoke, internvl2-smoke (8 vision embeddings
+    before 40 tokens, the loss over the tokens only) and seamless-smoke (16
+    speech frames through the encoder and the cross-attention)."""
+    archs = {"moe": ("mixtral-8x22b", "moonshot-v1-16b-a3b"), "vlm": ("internvl2-26b",),
+             "audio": ("seamless-m4t-large-v2",)}[family]
+    for arch in archs:
+        _first_step_matches_jax(arch)
 
 
 def test_head_dim_apart_from_width_matches_jax():

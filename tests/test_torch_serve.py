@@ -31,7 +31,8 @@ def _requests():
 
 
 ARCHS = ["granite-8b", "recurrentgemma-2b", "mamba2-130m", "qwen2.5-14b",
-         "mistral-nemo-12b", "llama3-405b", "mixtral-8x22b", "moonshot-v1-16b-a3b"]
+         "mistral-nemo-12b", "llama3-405b", "mixtral-8x22b", "moonshot-v1-16b-a3b",
+         "internvl2-26b", "seamless-m4t-large-v2"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -44,7 +45,10 @@ def test_greedy_tokens_match_jax_engine(arch):
     mistral-nemo-smoke rope_theta 1e6, llama3-smoke head_dim 8 and 5e5;
     the MoE prefills are batch-1 at the prompt's length, and decode at
     batch 2 takes mixtral-smoke's dense path (B·k = E) and moonshot-smoke's
-    gather path (B·k < E)."""
+    gather path (B·k < E). internvl2-smoke's prefills prepend 8 zero vision
+    embeddings (a slot's positions count them, so the longest prompt's
+    prefill rolls its cache ring), seamless-smoke's encode 16 zero speech
+    frames for the cross-attention."""
     jcfg = jconfigs.get_smoke(arch).replace(dtype="float32")
     tcfg = tconfigs.get_smoke(arch).replace(dtype="float32")
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))

@@ -52,13 +52,17 @@ from repro_torch.train.loop import train_loop  # noqa: E402
 from repro_torch.train.optimizer import OptConfig  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)    # float32 on both sides; op order differs
-ARCHS = ["tiny", "granite-8b", "recurrentgemma-2b", "qwen2.5-14b", "mixtral-8x22b"]
-# parameter leaves: stacked (tiny, granite; qwen2.5 adds the three QKV
-# biases; mixtral has the router and three expert weights for the MLP's
+ARCHS = ["tiny", "granite-8b", "recurrentgemma-2b", "qwen2.5-14b", "mixtral-8x22b",
+         "internvl2-26b", "seamless-m4t-large-v2"]
+# parameter leaves: stacked (tiny, granite, internvl2; qwen2.5 adds the three
+# QKV biases; mixtral has the router and three expert weights for the MLP's
 # three) or unrolled over 5 layers of rglru, rglru, local_attn, rglru, rglru
-# (recurrentgemma, tied embeddings)
+# (recurrentgemma, tied embeddings); seamless: 13 per decoder layer (the
+# cross block's norm and four projections, a gelu MLP of two), 8 per
+# encoder layer and the encoder's final norm, and embed, unembed, final norm
 N_LEAVES = {"tiny": 12, "granite-8b": 12, "recurrentgemma-2b": 4 * 13 + 9 + 2,
-            "qwen2.5-14b": 15, "mixtral-8x22b": 13}
+            "qwen2.5-14b": 15, "mixtral-8x22b": 13, "internvl2-26b": 12,
+            "seamless-m4t-large-v2": 13 + 9 + 3}
 RUN = dict(steps=6, global_batch=4, seq_len=48, seed=0, log_every=1)
 
 
@@ -110,18 +114,21 @@ def _port_init(tcfg, seed):
 def smoke(request):
     jcfg, tcfg = _cfgs(request.param)
     jparams = jax.tree_util.tree_map(jnp.asarray, interop.to_numpy(_port_init(tcfg, 0)))
-    # longer than recurrentgemma-smoke's window of 32
-    tokens = np.array(jpipeline.make_batch(jcfg, 3, 45, seed=1, step=0)["tokens"])
-    return request.param, jcfg, tcfg, jparams, tokens
+    # longer than recurrentgemma-smoke's window of 32; internvl2-smoke's 45
+    # positions are 8 vision embeddings and 37 tokens, seamless-smoke's batch
+    # carries 16 speech-frame embeddings beside its 45 tokens
+    batch = {k: np.array(v) for k, v in jpipeline.make_batch(jcfg, 3, 45, seed=1,
+                                                             step=0).items()}
+    return request.param, jcfg, tcfg, jparams, batch
 
 
 def test_forward_logits_and_loss_match_jax(smoke):
-    _, jcfg, tcfg, jparams, tokens = smoke
-    batch = {"tokens": jnp.asarray(tokens)}
+    _, jcfg, tcfg, jparams, nbatch = smoke
+    batch = {k: jnp.asarray(v) for k, v in nbatch.items()}
     jlogits, jaux = jax.jit(JM.forward, static_argnums=1)(jparams, jcfg, batch)
     jloss = jax.jit(JM.loss_fn, static_argnums=1)(jparams, jcfg, batch)
     tparams = interop.to_torch(jparams)
-    tbatch = {"tokens": torch.from_numpy(tokens)}
+    tbatch = {k: torch.from_numpy(v) for k, v in nbatch.items()}
     logits, aux = TM.forward(tparams, tcfg, tbatch)     # (logits, aux), as the reference's
     assert logits.dtype == torch.float32 and logits.shape == (3, 45, tcfg.vocab_size)
     np.testing.assert_allclose(aux.item(), float(jaux), **TOL)
@@ -130,12 +137,12 @@ def test_forward_logits_and_loss_match_jax(smoke):
 
 
 def test_every_grad_leaf_matches_jax_grad(smoke):
-    arch, jcfg, tcfg, jparams, tokens = smoke
+    arch, jcfg, tcfg, jparams, nbatch = smoke
     jgrads = jax.jit(jax.grad(JM.loss_fn), static_argnums=1)(
-        jparams, jcfg, {"tokens": jnp.asarray(tokens)})
+        jparams, jcfg, {k: jnp.asarray(v) for k, v in nbatch.items()})
     tparams = interop.to_torch(jparams)
     leaves = [(path, t.requires_grad_()) for path, t in _leaves(tparams)]
-    TM.loss_fn(tparams, tcfg, {"tokens": torch.from_numpy(tokens)}).backward()
+    TM.loss_fn(tparams, tcfg, {k: torch.from_numpy(v) for k, v in nbatch.items()}).backward()
     jflat = dict(_leaves(jgrads))
     assert len(leaves) == len(jflat) == N_LEAVES[arch]
     for path, t in leaves:
