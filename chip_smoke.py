@@ -87,9 +87,10 @@ nothing is caught and carried on past:
                 tokens), tiny (f32, 6 steps of 8 x 2048) and recurrentgemma-2b
                 (bf16, 6 steps of 4 x 2048 in 4 microbatches); the launch
                 counts set to 0 just before and read just after each run and
-                matched exactly (per step: one SSD launch per ssm layer, one
-                flash launch per attention layer, two scans per rglru layer,
-                times the microbatches); losses (the first near ln V plus
+                matched exactly (per step, with remat on, as by default: two
+                SSD launches per ssm layer, two flash launches per attention
+                layer, three scans per rglru layer (forward, its recompute,
+                the rule), times the microbatches); losses (the first near ln V plus
                 half the logits' variance, the last below the first),
                 grad_norm, ms/step, tokens/s, peak memory; then one more step
                 of each under torch.profiler: kernel time, the port kernels'
@@ -103,8 +104,22 @@ nothing is caught and carried on past:
                 regular job starts at once and trains to its end beside it;
                 a clone of the best-effort job resumes from the checkpoint
                 and ends where an uninterrupted run of the same spec ends;
-                flash launches matched to 8 per step over all the jobs.
-A summary block follows (card, build time, each library's registers,
+                flash launches matched to 16 per step (remat) over all the
+                jobs, each job on the runner's one-rank mesh;
+  9. sharded  — on a one-rank nccl group and a 1 x 1 DeviceMesh:
+                recurrentgemma-2b trained at full width under the fsdp rules
+                with remat (phase 7's run: 6 steps of 4 x 2048 in 4
+                microbatches), every step's loss within 1e-5 relative of
+                phase 7's and the launches equal to its; granite-8b serving
+                phase 5's 8 requests under the tp2d rules, the greedy tokens
+                and launches equal to phase 5's; then, with the group
+                destroyed, the dry-run (repro_torch.launch.dryrun.run_cell)
+                of llama3-405b x train_4k (fsdp), mixtral-8x22b x
+                decode_32k (tp2d) and recurrentgemma-2b x long_500k
+                (baseline) on the meta device under a fake 256-rank group
+                (16 x 16): GiB per device, fits in 80 GB, the dominant
+                roofline term (H100 spec numbers), useful_ratio; one line.
+A summary block follows (phase 10: card, build time, each library's registers,
 spills, tensor-core and cp.async instruction counts, with each kernel's in
 src/repro_torch/_build/chip_smoke_build.json; the kernel and rule times
 beside their bounds). The whole output stays under 20,000 bytes.
@@ -184,7 +199,12 @@ try:
     from repro_torch.kernels.ssd import kernel as ssd_module  # noqa: E402
     from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
     from repro_torch.kernels.ssd import ssd_kernel, ssd_ref, ssd_vjp  # noqa: E402
+    from repro_torch.kernels.flash_attention.ops import attention_pairs  # noqa: E402
+    from repro_torch.kernels.ssd.ops import ssd_flops  # noqa: E402
+    from repro_torch.launch import dryrun  # noqa: E402
     from repro_torch.launch.cluster import ClusterRunner  # noqa: E402
+    from repro_torch.launch.mesh import HW, make_local_mesh  # noqa: E402
+    from repro_torch.parallel.sharding import RULES as SHARDING_RULES  # noqa: E402
     from repro_torch.models import model as M  # noqa: E402
     from repro_torch.models import moe as moe_mod  # noqa: E402
     from repro_torch.models import transformer as tfm  # noqa: E402
@@ -198,10 +218,11 @@ except ImportError as exc:       # e.g. run alone, without the repository's src/
     report_exception(exc)
     sys.exit(1)
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12          # outside the tensor cores
-PEAK_BYTES = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): the port's
+# one table of them, repro_torch.launch.mesh.HW.
+PEAK_BF16_FLOPS = HW["peak_flops_bf16"]
+PEAK_F32_FLOPS = HW["peak_flops_f32"]          # outside the tensor cores
+PEAK_BYTES = HW["hbm_bw"]
 
 # Kernel vs plain version: float32 differs by summation order only; bf16
 # by the rounding of the output (and of P inside the flash kernel's sums).
@@ -272,13 +293,7 @@ def bound(t_ops: float, t_bytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _pairs(Sq, Sk, causal, window) -> int:
-    """(q, k) pairs the mask keeps, q and k positions both counted from 0."""
-    def keys(i):
-        hi = min(i + 1, Sk) if causal else Sk
-        lo = max(0, i - window + 1) if window else 0
-        return max(0, hi - lo)
-    return sum(keys(i) for i in range(Sq))
+_pairs = attention_pairs       # (q, k) pairs the mask keeps, the flash op's FLOP count
 
 
 def attention_bound(B, Sq, Sk, H, K, D, causal, window=None):
@@ -387,11 +402,15 @@ def launches_per_decode(cfg) -> dict:
 def launches_per_train_step(cfg, microbatches: int = 1) -> dict:
     """Per microbatch, the forward launches flash once per attention of the
     pass, the scan once per rglru layer and the SSD kernel once per ssm
-    layer; in the backward, the scan's rule launches the scan once more, and
-    the flash and SSD rules (plain recomputes) launch nothing."""
+    layer; with remat (``cfg.remat``, on by default, as in the reference)
+    the backward runs each layer's forward again first, the same launches
+    once more; then the scan's rule launches the scan once more, and the
+    flash and SSD rules (plain recomputes) launch nothing."""
     kinds = tfm.layer_kinds(cfg)
-    per_mb = {"flash_attention": _flash_per_pass(cfg),
-              "lru_scan": 2 * kinds.count("rglru"), "ssd_scan": kinds.count("ssm")}
+    passes = 2 if cfg.remat else 1
+    per_mb = {"flash_attention": passes * _flash_per_pass(cfg),
+              "lru_scan": (passes + 1) * kinds.count("rglru"),
+              "ssd_scan": passes * kinds.count("ssm")}
     return {k: n * microbatches for k, n in per_mb.items()}
 
 
@@ -912,17 +931,7 @@ def ssd_counts(B, S, H, P, N, chunk, itemsize) -> tuple[float, float]:
     the same pairs, the inter-chunk term C h^T (every chunk after the first)
     and the state update (every chunk before the last). Bytes: x, B, C read
     and y written once in the compute dtype, dt and A once in f32."""
-    flops = 0
-    starts = range(0, S, min(chunk, S))
-    for c, c0 in enumerate(starts):
-        q = min(chunk, S - c0)
-        pairs = q * (q + 1) // 2
-        flops += 2 * B * pairs * N                      # C B^T
-        flops += 2 * B * H * pairs * P                  # scores u
-        if c > 0:
-            flops += 2 * B * H * q * N * P              # C h^T
-        if c < len(starts) - 1:
-            flops += 2 * B * H * q * P * N              # state update
+    flops = ssd_flops(B, S, H, P, N, chunk)          # the SSD op's FLOP formula
     nbytes = (2 * B * S * H * P + 2 * B * S * N) * itemsize + (B * S * H + H) * 4
     return float(flops), float(nbytes)
 
@@ -1540,7 +1549,8 @@ def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) 
         fail("first token of request 0 differs from its single-request prefill")
     return {"arch": arch, "cfg": cfg, "launches": launches, "engine": engine,
             "prompts": prompts, "max_new": max_new, "stats": stats, "wall_s": wall,
-            "tokens": tokens, "steps": n_steps, "card": card}
+            "tokens": tokens, "steps": n_steps, "card": card,
+            "generated": [r.generated for r in done]}
 
 
 def top_kernels(trace: Trace, n: int = 2) -> str:
@@ -1612,7 +1622,8 @@ def phase_profile(serve: dict) -> None:
 def serve_and_profile(dev, arch: str, **kw) -> dict:
     """Phases 5 and 6 for one arch; frees its weights and cache after."""
     serve = phase_serve(dev, arch, **kw)
-    result = {k: serve[k] for k in ("launches", "card", "cfg")}
+    result = {k: serve[k] for k in ("launches", "card", "cfg", "prompts", "max_new",
+                                    "generated")}
     phase_profile(serve)
     serve.clear()
     gc.collect()
@@ -1700,7 +1711,8 @@ def phase_train(dev, arch: str) -> dict:
     if launches != expect:
         fail(f"{arch} training launched {launches}, expected {expect}")
     return {"arch": arch, "launches": launches, "cfg": cfg, "opt": opt, **run,
-            "step_ms": statistics.mean(steady) * 1e3, "card": card}
+            "step_ms": statistics.mean(steady) * 1e3, "card": card, "losses": losses,
+            "peak_gib": peak / 2**30}
 
 
 # Gradient rules, each timed on the device under a label for the profiled step.
@@ -1933,6 +1945,110 @@ def phase_runner(dev) -> dict:
             "card": nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")}
 
 
+# ----------------------------------------------------------------- sharded
+# Phase 9: the sharded path on a one-rank group and a 1 x 1 mesh, against
+# phases 7 and 5 on the same seeds; then the dry-run of three production
+# cells on the meta device under a fake 256-rank group.
+SHARDED_TRAIN = ("recurrentgemma-2b", "fsdp")
+SHARDED_SERVE = ("granite-8b", "tp2d")
+SHARDED_LOSS_REL = 1e-5
+DRYRUN_CELLS = (("llama3-405b", "train_4k", None), ("mixtral-8x22b", "decode_32k", "tp2d"),
+                ("recurrentgemma-2b", "long_500k", None))
+
+
+def phase_sharded(dev, train: dict, serve: dict) -> list:
+    """recurrentgemma-2b trained at full width under the fsdp rules (remat
+    on) through train_loop on a one-rank nccl group's 1 x 1 DeviceMesh:
+    every step's loss within SHARDED_LOSS_REL of phase 7's on the same seed,
+    the launches per step equal to phase 7's; granite-8b serving phase 5's 8
+    requests through ServeEngine under the tp2d rules: the same greedy
+    tokens; then the dry-run's three cells, one line. Returns the two
+    sharded runs' launches, (name, cfg, {"launches"}) as the kernels line
+    lists its paths."""
+    import logging
+
+    import torch.distributed as dist
+    # DTensor warns at every two-step redistribution on the dry-run's 2-D mesh
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    arch, rules = SHARDED_TRAIN
+    at_phase(9, "sharded", f"{arch} training, {rules}")
+    mesh = make_local_mesh(1, dev)
+    cfg, run = configs.get(arch), TRAIN_RUNS[arch]
+    history = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                        # count the main path's run only
+    t0 = time.perf_counter()
+    result = train_loop(cfg, opt=train["opt"], log_every=1, device=dev, mesh=mesh,
+                        rules=SHARDING_RULES[rules],
+                        on_metrics=lambda step, m: history.append((time.perf_counter(), m)),
+                        **run, **TRAIN)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for _, m in history]
+    stamps = [t0] + [t for t, _ in history]
+    steady = [b - a for a, b in zip(stamps[1:-1], stamps[2:])]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, train["losses"]))
+    msg = (f"[sharded] 1 x 1 mesh ({dist.get_backend()}): {arch} {rules}+remat "
+           f"{1e3 * statistics.mean(steady):.3f} ms/step (phase 7 {train['step_ms']:.3f}), "
+           f"peak {peak:.3f} GiB ({train['peak_gib']:.3f}), loss rel err {worst:.1e} (limit "
+           f"{SHARDED_LOSS_REL:g}), launches {counts_str(launches)} (= phase 7's)")
+    expect = {k: n * TRAIN["steps"]
+              for k, n in launches_per_train_step(cfg, run["microbatches"]).items()}
+    if result.status != "done" or len(losses) != TRAIN["steps"]:
+        fail(f"{arch} sharded training ended {result.status} at step {result.step}")
+    if worst > SHARDED_LOSS_REL:
+        fail(f"{msg}: losses {losses} vs {train['losses']}")
+    if launches != train["launches"] or launches != expect:
+        fail(f"{msg}: launches differ from phase 7's {train['launches']}")
+    runs = [(f"{arch} training, {rules} (1 x 1 mesh)", cfg, {"launches": launches})]
+    del result, history
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    arch, rules = SHARDED_SERVE
+    at_phase(9, "sharded", f"{arch} serving, {rules}")
+    cfg = configs.get(arch)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           M.compute_dtype(cfg), dev)
+    engine = ServeEngine(cfg, params, max_batch=4, max_len=1024, device=dev, mesh=mesh,
+                         rules=SHARDING_RULES[rules])
+    reset_counts()
+    t0 = time.perf_counter()
+    rids = [engine.submit(p, max_new_tokens=int(n))
+            for p, n in zip(serve["prompts"], serve["max_new"])]
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    tokens = [engine.requests[r].generated for r in rids]
+    same = sum(a == b for a, b in zip(tokens, serve["generated"]))
+    msg += (f"; {arch} {rules}: {same}/{len(rids)} token-equal to phase 5, "
+            f"{sum(map(len, tokens))} tokens in {wall:.3f} s, {counts_str(launches)} "
+            f"(phase 5 {counts_str(serve['launches'])})")
+    if same != len(rids) or launches != serve["launches"]:
+        fail(msg)
+    runs.append((f"{arch} serving, {rules} (1 x 1 mesh)", cfg, {"launches": launches}))
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    at_phase(9, "sharded", "dry-run")
+    dist.destroy_process_group()          # the dry-run's group is a fake one
+    cells, t = [], time.perf_counter()
+    for arch, shape, kind in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape, rules_kind=kind, verbose=False)
+        m = r["memory"]
+        cells.append(f"{arch} {shape} {r['rules']} {m['total_gb']:.1f} GiB/dev "
+                     f"{'fits' if m['fits'] else 'no fit'} {r['terms']['dominant']} "
+                     f"useful {r['useful_ratio']:.3f}")
+    log(msg + "; dry-run (meta, 16 x 16 fake ranks, H100 spec): " + "; ".join(cells)
+        + f" ({time.perf_counter() - t:.1f} s) [at {time.perf_counter() - T_START:.1f} s]")
+    return runs
+
+
 def card_range(readings: list) -> str:
     """nvidia-smi's 'clocks.sm, power.draw, power.limit, temperature.gpu'
     readings of several runs on one line: each field's range (one value
@@ -2093,7 +2209,9 @@ def main() -> int:
     runner = phase_runner(dev)
     log("[train] card after each run: "
         f"{card_range([t['card'] for t in trains + [runner]])}")
-    at_phase(9, "summary")
+    sharded = phase_sharded(dev, next(t for t in trains if t["arch"] == SHARDED_TRAIN[0]),
+                            serves[SHARDED_SERVE[0]])
+    at_phase(10, "summary")
 
     def paths(kernel):
         """{path: launches} for each main path whose model has a layer of the
@@ -2104,6 +2222,7 @@ def main() -> int:
         runs = [(f"{arch} serving", r["cfg"], r) for arch, r in serves.items()]
         runs += [(f"{t['arch']} training", t["cfg"], t) for t in trains]
         runs.append(("tiny via ClusterRunner (4 jobs)", configs.get("tiny"), runner))
+        runs += sharded
         return {name: r["launches"][kernel] for name, cfg, r in runs
                 if kinds & set(tfm.layer_kinds(cfg))}
 

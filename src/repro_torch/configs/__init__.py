@@ -10,7 +10,8 @@ from __future__ import annotations
 from repro_torch.configs import (granite_8b, internvl2_26b, llama3_405b, mamba2_130m,
                                  mistral_nemo_12b, mixtral_8x22b, moonshot_v1_16b_a3b,
                                  qwen2_5_14b, recurrentgemma_2b, seamless_m4t_large_v2, tiny)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig, cell_supported,
+                                      shape_for)
 
 _MODULES = {"granite-8b": granite_8b, "internvl2-26b": internvl2_26b,
             "llama3-405b": llama3_405b,
@@ -36,4 +37,5 @@ def get_smoke(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
 
 
-__all__ = ["ModelConfig", "ARCHS", "get", "get_smoke"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "shape_for", "cell_supported",
+           "ARCHS", "get", "get_smoke"]

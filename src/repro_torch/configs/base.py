@@ -13,7 +13,7 @@ import dataclasses
 import math
 from dataclasses import dataclass
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "shape_for", "cell_supported"]
 
 
 @dataclass(frozen=True)
@@ -66,6 +66,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    remat: bool = True              # recompute each layer's forward in the backward
     scan_layers: bool = True        # stacked (L, ...) layers when all kinds match
 
     def __post_init__(self):
@@ -79,6 +80,11 @@ class ModelConfig:
     @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500k context with bounded memory?"""
+        return self.family in ("ssm", "hybrid") or self.attention == "swa"
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -102,3 +108,35 @@ class ModelConfig:
                 n = n * self.num_experts_per_tok // self.num_experts
             total += n
         return total
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_for(name: str) -> ShapeConfig:
+    try:
+        return SHAPES[name]
+    except KeyError:
+        raise KeyError(f"unknown shape {name!r}; have {sorted(SHAPES)}") from None
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Is (arch x shape) runnable? A full-attention arch does not decode at
+    500k context: its dense KV cache is not sub-quadratic."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention arch: 500k dense KV decode is not "
+                       "sub-quadratic (skip per assignment)")
+    return True, ""

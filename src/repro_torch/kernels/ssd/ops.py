@@ -1,31 +1,66 @@
 """Public SSD scan entry point (port of the reference's ``ops.py``).
 
-A CUDA tensor goes to :class:`_SSDKernel`, whose forward is the
-hand-written kernel; a CPU tensor goes to the plain version. There is no
-other path: the kernel raises on what it does not take. The reference's
-gradient through the scan is autodiff of plain jnp (it has no backward
-kernel), and the port's is the same thing written out: :func:`ssd_vjp`
-recomputes the plain chunked function from the saved inputs and takes its
-vector-Jacobian product. That is the gradient rule, not a fallback: the
-forward never runs the plain version on the card. The one-token decode
-step is plain PyTorch (:func:`ssd_decode_step`), as it is plain jnp in the
-reference.
+:func:`ssd` is the custom op ``repro_torch::ssd_scan``, with one
+implementation per device and no other path:
+
+  cuda       the hand-written kernel (:func:`ssd_kernel`), which raises on
+             what it does not take;
+  cpu        the plain chunked scan (:func:`ssd_ref`);
+  fake/meta  shapes only (the dry-run on the ``meta`` device).
+
+The reference's gradient through the scan is autodiff of plain jnp (it has
+no backward kernel), and the port's is the same thing written out:
+:func:`ssd_vjp`, on each rank's shards, recomputes the plain chunked
+function from the saved inputs and takes its vector-Jacobian product.
+That is the gradient rule, not a fallback: the forward never runs the
+plain version on the card. The op carries a DTensor sharding rule (batch,
+or heads; never the sequence; or replicate) and a FLOP formula. :class:`_SSDKernel` is the same kernel and rule as an
+autograd Function, which times them without the op's dispatch. The
+one-token decode step is plain PyTorch (:func:`ssd_decode_step`), as it is
+plain jnp in the reference.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch import Tensor
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.ssd.kernel import ssd_kernel
+from repro_torch.kernels.sharded import layout_of, on_shards
 from repro_torch.kernels.ssd.ref import ssd_decode_step_ref, ssd_ref
 
-__all__ = ["ssd", "ssd_vjp", "ssd_decode_step"]
+__all__ = ["ssd", "ssd_vjp", "ssd_decode_step", "ssd_flops"]
 
 ssd_decode_step = ssd_decode_step_ref
 
 
-def ssd_vjp(grad_y: torch.Tensor, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-            Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int):
+def ssd_flops(B: int, S: int, H: int, P: int, N: int, chunk: int) -> int:
+    """Operations of the SSD scan in its chunked form: C B^T once per
+    (batch row, chunk) over the causal (i, j) pairs (B and C are shared by
+    the heads), then per head the masked scores times u over the same
+    pairs, the inter-chunk term C h^T (every chunk after the first) and the
+    state update (every chunk before the last)."""
+    flops = 0
+    starts = range(0, S, min(chunk, S))
+    for c, c0 in enumerate(starts):
+        q = min(chunk, S - c0)
+        pairs = q * (q + 1) // 2
+        flops += 2 * B * pairs * N                      # C B^T
+        flops += 2 * B * H * pairs * P                  # scores u
+        if c > 0:
+            flops += 2 * B * H * q * N * P              # C h^T
+        if c < len(starts) - 1:
+            flops += 2 * B * H * q * P * N              # state update
+    return flops
+
+
+def ssd_vjp(grad_y: Tensor, x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor, *,
+            chunk: int):
     """The gradient rule of the SSD kernel: the vector-Jacobian product of
     :func:`ssd_ref` at (x, dt, A, Bm, Cm) with cotangent ``grad_y``.
 
@@ -54,11 +89,96 @@ class _SSDKernel(torch.autograd.Function):
         return (*ssd_vjp(grad_y, *ctx.saved_tensors, chunk=ctx.chunk), None)
 
 
-def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-        Cm: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
-    """Mamba-2 SSD scan. x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm, Cm: (B,S,N)."""
-    if x.device.type == "cuda":
-        return _SSDKernel.apply(x, dt, A, Bm, Cm, chunk)
-    if x.device.type == "cpu":
-        return ssd_ref(x, dt, A, Bm, Cm, chunk=chunk)
+# ------------------------------------------------------------------ forward
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _ssd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor, chunk: int) -> Tensor:
     raise ValueError(f"ssd: unsupported device {x.device}")
+
+
+def _packed(x, Bm, Cm):
+    """The kernel reads x packed over (H, P) and Bm, Cm over N (views of one
+    projection are read in place); a shard that is not is copied."""
+    P = x.shape[3]
+    if x.stride(3) != 1 or x.stride(2) != P:
+        x = x.contiguous()
+    return x, (Bm if Bm.stride(2) == 1 else Bm.contiguous()), \
+        (Cm if Cm.stride(2) == 1 else Cm.contiguous())
+
+
+@_ssd_op.register_kernel("cuda")
+def _(x, dt, A, Bm, Cm, chunk):
+    x, Bm, Cm = _packed(x, Bm, Cm)
+    return ssd_kernel(x, dt.contiguous(), A.contiguous(), Bm, Cm, chunk=chunk)
+
+
+@_ssd_op.register_kernel("cpu")
+def _(x, dt, A, Bm, Cm, chunk):
+    return ssd_ref(x, dt, A, Bm, Cm, chunk=chunk).contiguous()
+
+
+@_ssd_op.register_fake
+def _(x, dt, A, Bm, Cm, chunk):
+    return x.new_empty(x.shape)
+
+
+# ------------------------------------------------------------------ sharding
+def _heads_divide(x) -> bool:
+    return all(x.shape[2] % n == 0 for n in x.mesh.shape)
+
+
+# Per mesh dim, the layout of (x, dt, A, Bm, Cm) for each output layout
+# (the forward's choice), and of their gradients: a gradient summed over
+# the sharded dim (dA over the batch, dB and dC over the heads) is partial.
+_IN = {Replicate(): (Replicate(),) * 5,
+       Shard(0): (Shard(0), Shard(0), Replicate(), Shard(0), Shard(0)),
+       Shard(2): (Shard(2), Shard(2), Shard(0), Replicate(), Replicate())}
+_GRAD = {Replicate(): (Replicate(),) * 5,
+         Shard(0): (Shard(0), Shard(0), Partial(), Shard(0), Shard(0)),
+         Shard(2): (Shard(2), Shard(2), Shard(0), Partial(), Partial())}
+
+
+@register_sharding(torch.ops.repro_torch.ssd_scan.default)
+def _(x, dt, A, Bm, Cm, chunk):
+    """Replicate; batch (A replicated); heads (x, dt, A over heads; B and C,
+    which the heads share, replicated). Never the sequence."""
+    layouts = [Replicate(), Shard(0)] + ([Shard(2)] if _heads_divide(x) else [])
+    return [([p], [*_IN[p], None]) for p in layouts]
+
+
+# ----------------------------------------------------------------- backward
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:5])
+    ctx.chunk = inputs[5]
+    ctx.layout = layout_of(output)
+
+
+def _per_input(table: dict, layout: tuple) -> tuple:
+    """Per-tensor placements from a per-mesh-dim layout."""
+    return tuple(zip(*(table[p] for p in layout)))
+
+
+def _backward(ctx, grad_y):
+    """:func:`ssd_vjp` on each rank's shards, laid out as the forward's
+    sharding rule laid them out."""
+    rule = functools.partial(ssd_vjp, chunk=ctx.chunk)
+    if ctx.layout is None:
+        return (*rule(grad_y, *ctx.saved_tensors), None)
+    ins = (ctx.layout, *_per_input(_IN, ctx.layout))
+    return (*on_shards(rule, _per_input(_GRAD, ctx.layout), ins, grad_y, *ctx.saved_tensors),
+            None)
+
+
+_ssd_op.register_autograd(_backward, setup_context=_setup)
+
+
+# --------------------------------------------------------------------- FLOPs
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _(x_shape, dt_shape, A_shape, B_shape, C_shape, chunk, *args, out_shape=None, **kwargs):
+    B, S, H, P = x_shape
+    return ssd_flops(B, S, H, P, B_shape[2], chunk)
+
+
+def ssd(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor, *,
+        chunk: int = 256) -> Tensor:
+    """Mamba-2 SSD scan. x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm, Cm: (B,S,N)."""
+    return _ssd_op(x, dt, A, Bm, Cm, chunk)

@@ -24,9 +24,12 @@ database like any other job.
 
 The runner takes ``db`` and ``executor`` as it is given them and calls only
 ``db.query_one(sql, args)`` and ``executor.complete(job_id, ok=...,
-message=...)``, so it imports nothing of the control plane. The
-reference's ``default_rules`` (sharding rules) has no counterpart until the
-port has sharding (ROADMAP.md Queue 1 item 9): a job runs on one device.
+message=...)``, so it imports nothing of the control plane. As the
+reference's, it trains each job under its ``default_rules`` (sharding
+rules; ``make_rules(multi_pod=False)`` unless given) on a ``(data, model)``
+mesh over its process's ranks on its device: one rank in a plain process
+(the mesh starts a one-rank group, built once and shared by the jobs),
+the world under ``torchrun``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ import torch
 
 from repro_torch import configs
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.parallel.sharding import make_rules
 from repro_torch.train.loop import train_loop
 
 __all__ = ["ClusterRunner"]
@@ -45,10 +50,14 @@ __all__ = ["ClusterRunner"]
 class ClusterRunner:
     """Runs 'train' job specs on ``device``, one thread per job."""
 
-    def __init__(self, db, executor, *, device: str | torch.device = "cuda"):
+    def __init__(self, db, executor, *, default_rules=None,
+                 device: str | torch.device = "cuda"):
         self.db = db
         self.executor = executor
+        self.rules = default_rules or make_rules(multi_pod=False)
         self.device = resolve_device(device)
+        self._mesh = None
+        self._mesh_lock = threading.Lock()
         self.threads: dict[int, threading.Thread] = {}
         self.results: dict[int, object] = {}
 
@@ -59,6 +68,13 @@ class ClusterRunner:
         t = threading.Thread(target=self._run, args=(spec,), daemon=True)
         self.threads[spec["idJob"]] = t
         t.start()
+
+    def mesh(self):
+        """The jobs' mesh, built at the first job's start."""
+        with self._mesh_lock:
+            if self._mesh is None:
+                self._mesh = make_local_mesh(1, self.device)
+            return self._mesh
 
     def _preempt_check(self, job_id: int):
         def check() -> bool:
@@ -82,7 +98,7 @@ class ClusterRunner:
                 ckpt_every=spec.get("ckpt_every", 50),
                 preempt_check=self._preempt_check(job_id),
                 log_every=spec.get("log_every", 20),
-                device=self.device,
+                device=self.device, mesh=self.mesh(), rules=self.rules,
             )
             self.results[job_id] = result
             if result.status == "done":

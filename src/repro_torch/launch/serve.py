@@ -24,19 +24,31 @@ embeddings at each prefill); mixtral-8x22b and llama3-405b serve at smoke
 width until the port shards a model (ROADMAP.md item 9).
 ``--device cpu`` serves on the CPU in float32, as the reference launcher
 does off the accelerator. With no card and no ``--device cpu`` it raises.
+
+``--tp2d`` serves with the reference's serving rules (resident weights,
+heads and vocab over the `model` axis, the `ff` dim 2-D over data and
+model, the cache by ``cache_pspecs``) on a ``DeviceMesh`` over the world
+(one rank in a plain process); under ``torchrun`` the mesh spans the world
+with or without it (the baseline rules without):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --full --tp2d
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import model as M
+from repro_torch.parallel.sharding import make_rules
 from repro_torch.serve.engine import ServeEngine
 
 
@@ -50,6 +62,8 @@ def main(argv=None) -> list:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp2d", action="store_true",
+                    help="serving rule set (resident 2-D-sharded weights)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -59,8 +73,12 @@ def main(argv=None) -> list:
         cfg = cfg.replace(dtype="float32")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = M.init_params(cfg, gen, M.compute_dtype(cfg), device)
+    mesh = rules = None
+    if args.tp2d or "WORLD_SIZE" in os.environ:
+        mesh = make_local_mesh(1, device)
+        rules = make_rules(multi_pod=False, tp2d=args.tp2d)
     engine = ServeEngine(cfg, params, max_batch=args.max_batch,
-                         max_len=args.max_len, device=device)
+                         max_len=args.max_len, device=device, mesh=mesh, rules=rules)
 
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
@@ -74,6 +92,8 @@ def main(argv=None) -> list:
     print(f"arch={cfg.name} device={device} served {len(done)} requests, "
           f"{total} tokens in {engine.steps_run} steps ({dt:.1f}s)")
     print(f"slot efficiency {total / (engine.steps_run * args.max_batch):.1%}")
+    if mesh is not None:
+        dist.destroy_process_group()        # the group the mesh started or joined
     return done
 
 

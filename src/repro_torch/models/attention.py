@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import ParamSpec, apply_rope, rotary_embedding
+from repro_torch.parallel.sharding import index_put_local, reshape
 
 __all__ = ["attn_specs", "attn_apply", "attn_decode", "cross_memory_kv",
            "cross_attn_apply"]
@@ -40,13 +41,14 @@ def attn_specs(cfg, *, cross: bool = False) -> dict:
 def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
     D, H, Dh = w.shape
-    return (x @ w.to(x.dtype).reshape(D, H * Dh)).unflatten(-1, (H, Dh))
+    y = x @ reshape(w.to(x.dtype), D, H * Dh)
+    return reshape(y, *y.shape[:-1], H, Dh)
 
 
 def _proj_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd")."""
     H, Dh, D = w.shape
-    return o.flatten(-2) @ w.to(o.dtype).reshape(H * Dh, D)
+    return reshape(o, *o.shape[:-2], H * Dh) @ reshape(w.to(o.dtype), H * Dh, D)
 
 
 def _qkv(p, x, cfg):
@@ -95,7 +97,8 @@ def attn_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, pos: torch.Tensor, cfg, *,
                 window: int | None = None) -> torch.Tensor:
     """One-token decode step; writes this token's K/V into the caches in
-    place (the reference returns new caches, which JAX donates).
+    place (the reference returns new caches, which JAX donates); a sharded
+    cache is written on each rank's shard.
 
     x: (B, 1, D); cache_k/v: (B, Smax, K, Dh); pos: (B,) int (absolute
     position of each row's token — rows differ under continuous batching).
@@ -116,10 +119,10 @@ def attn_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
 
     slot = pos % Smax                                       # (B,)
     rows = torch.arange(B, device=x.device)
-    cache_k[rows, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[rows, slot] = v_new[:, 0].to(cache_v.dtype)
+    index_put_local(cache_k, (rows, slot), k_new[:, 0])
+    index_put_local(cache_v, (rows, slot), v_new[:, 0])
 
-    qf = q.float().reshape(B, K, G, Dh)
+    qf = reshape(q.float(), B, K, G, Dh)
     s = torch.einsum("bkgd,btkd->bkgt", qf, cache_k.float()) * (Dh ** -0.5)
     # slot j holds the token `age = (slot - j) mod Smax` steps in the past
     idx = torch.arange(Smax, device=x.device)[None, :]
@@ -130,5 +133,5 @@ def attn_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     s = torch.where(valid[:, None, None, :], s,
                     torch.full((), -1e30, device=x.device))
     pattn = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgt,btkd->bkgd", pattn, cache_v.float()).reshape(B, 1, H, Dh)
+    o = reshape(torch.einsum("bkgt,btkd->bkgd", pattn, cache_v.float()), B, 1, H, Dh)
     return _proj_out(o.to(x.dtype), p["wo"])

@@ -14,6 +14,8 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 __all__ = ["ParamSpec", "flatten_specs", "init_tree", "rms_norm",
            "rotary_embedding", "apply_rope", "swiglu", "take_embedding"]
@@ -122,5 +124,40 @@ def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
     return F.silu(x_gate) * x_up
 
 
+def _masked_lookup(table: torch.Tensor, ids: torch.Tensor, lo: int) -> torch.Tensor:
+    """Rows ``ids`` of a vocab shard that starts at row ``lo``; an id outside
+    the shard reads zeros."""
+    local = ids - lo
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = F.embedding(local.clamp(0, table.shape[0] - 1), table)
+    return rows * inside[..., None].to(rows.dtype)
+
+
 def take_embedding(table: torch.Tensor, ids: torch.Tensor, compute_dtype) -> torch.Tensor:
-    return table[ids].to(compute_dtype)
+    """``table[ids]``. On a DTensor table whose vocab dim is sharded, the
+    vocab-parallel lookup: each rank reads the ids its rows hold (zeros for
+    the rest) and the rows come out partial over the vocab's mesh axes, to
+    be summed where the caller constrains them; the table's rows never move.
+    A table whose `embed` dim is sharded (fsdp, zero) is first gathered over
+    that dim, as every FSDP weight is before its use."""
+    if not isinstance(table, DTensor):
+        return F.embedding(ids, table).to(compute_dtype)
+    mesh = table.device_mesh
+    tl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in table.placements]
+    table = table.redistribute(mesh, tl)
+    vocab = [i for i, p in enumerate(tl) if isinstance(p, Shard)]
+    if not vocab:
+        return F.embedding(ids, table).to(compute_dtype)
+    ids = ids.redistribute(mesh, [Replicate() if i in vocab else p
+                                  for i, p in enumerate(ids.placements)])
+    from repro_torch.parallel.sharding import local_range
+    lo, _ = local_range(0, table.shape[0], tl, mesh)
+    out_pl = [Partial() if i in vocab else p for i, p in enumerate(ids.placements)]
+    # the table's gradient is summed over the mesh dims that split the batch
+    grad_pl = [Partial() if isinstance(ip, Shard) and i not in vocab else tp
+               for i, (tp, ip) in enumerate(zip(tl, ids.placements))]
+    rows = local_map(_masked_lookup, out_placements=(tuple(out_pl),),
+                     in_placements=(tuple(tl), tuple(ids.placements), None),
+                     in_grad_placements=(tuple(grad_pl), tuple(ids.placements), None),
+                     redistribute_inputs=False)(table, ids, lo)
+    return rows.to(compute_dtype)

@@ -13,17 +13,29 @@ the layer index. Otherwise (recurrentgemma: rglru, rglru, local_attn) the
 stack is unrolled into ``{"layer_{i}": ...}`` subtrees, one per layer. An
 encoder-decoder adds an ``encoder`` subtree ({"layers": stacked
 ``enc_attn`` blocks, "final_norm"}). The decode cache is updated in place.
+
+With ``cfg.remat`` (the reference's default), each layer of the stack and
+of the encoder runs under ``torch.utils.checkpoint`` whenever autograd
+records: its activations are dropped after the forward and the layer's
+forward runs again in the backward, as ``jax.checkpoint`` does in the
+reference. Under a sharding context (:mod:`repro_torch.parallel.ctx`) the
+embeddings and the logits are constrained to their logical layouts, where
+the reference constrains them; so is the residual stream after every
+residual add (``transformer.resid``), and each layer's params are gathered
+over the batch's mesh axes before it computes (``gather_for_compute``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import ParamSpec, init_tree, rms_norm, take_embedding
 from repro_torch.models.rglru import rglru_cache_shapes
 from repro_torch.models.ssm import ssm_cache_shapes
+from repro_torch.parallel.ctx import constrain_logical, gather_for_compute
 
 __all__ = ["param_shapes", "init_params", "forward", "loss_fn", "cache_shapes",
            "init_cache", "prefill", "decode_step", "compute_dtype", "uniform_scan",
@@ -88,15 +100,31 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
 
 
 # -------------------------------------------------------------------- trunk
+def _block_apply(p, x, cfg, kind, *, memory=None):
+    """``tfm.block_apply`` on the layer's params gathered for compute
+    (:func:`gather_for_compute`: FSDP's gather, inside the remat region, so
+    the backward gathers again rather than keep the full weights)."""
+    return tfm.block_apply(gather_for_compute(p), x, cfg, kind, memory=memory)
+
+
+def _block(cfg):
+    """:func:`_block_apply`, rematerialised when ``cfg.remat`` and autograd
+    records (the reference's ``jax.checkpoint`` of each layer)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return lambda *a, **kw: checkpoint(_block_apply, *a, use_reentrant=False, **kw)
+    return _block_apply
+
+
 def _stack_apply(layers_p, x, cfg, kinds, *, memory=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the layer stack over the full sequence. Returns (x, aux): the
     layers' MoE aux losses summed in f32. A stacked (L, ...) leaf is indexed
     per layer, so its gradient lands in the stacked leaf."""
     stacked = uniform_scan(cfg)
+    block = _block(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(kinds):
         p_i = _layer(layers_p, i) if stacked else layers_p[f"layer_{i}"]
-        x, a = tfm.block_apply(p_i, x, cfg, kind, memory=memory)
+        x, a = block(p_i, x, cfg, kind, memory=memory)
         aux = aux + a
     return x, aux
 
@@ -105,10 +133,11 @@ def _encoder_apply(params, cfg, embeds: torch.Tensor) -> torch.Tensor:
     """The encoder over the frontend's embeddings (B, F, D): the stacked
     ``enc_attn`` blocks (bidirectional), then its final norm."""
     enc = params["encoder"]
+    block = _block(cfg)
     x = embeds
     for i in range(cfg.encoder_layers):
-        x, _ = tfm.block_apply(_layer(enc["layers"], i), x, cfg, "enc_attn")
-    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+        x, _ = block(_layer(enc["layers"], i), x, cfg, "enc_attn")
+    return rms_norm(x, gather_for_compute(enc["final_norm"]), cfg.norm_eps)
 
 
 def _memory(params, cfg, batch, dtype):
@@ -127,7 +156,7 @@ def forward(params, cfg, batch) -> tuple[torch.Tensor, torch.Tensor]:
     x = _embed_inputs(params, cfg, batch)
     memory = _memory(params, cfg, batch, x.dtype)
     x, aux = _stack_apply(params["layers"], x, cfg, tfm.layer_kinds(cfg), memory=memory)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, gather_for_compute(params["final_norm"]), cfg.norm_eps)
     return _unembed(params, cfg, x), aux
 
 
@@ -200,16 +229,16 @@ def _embed_inputs(params, cfg, batch) -> torch.Tensor:
     x = take_embedding(params["embed"], batch["tokens"], dt)
     if cfg.family == "vlm":
         x = torch.cat([batch[FRONTEND_KEYS["vlm"]].to(dt), x], dim=1)
-    return x
+    return constrain_logical(x, ("batch", "seq", "act_embed"))
 
 
 def _unembed(params, cfg, x) -> torch.Tensor:
     """Logits in float32: the matmul runs in the compute dtype, then casts."""
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(x.dtype).T
+        logits = x @ gather_for_compute(params["embed"]).to(x.dtype).T
     else:
-        logits = x @ params["unembed"].to(x.dtype)
-    return logits.float()
+        logits = x @ gather_for_compute(params["unembed"]).to(x.dtype)
+    return constrain_logical(logits.float(), ("batch", "seq", "vocab"))
 
 
 # ------------------------------------------------------------------- decode
@@ -226,8 +255,8 @@ def decode_step(params, cfg, cache, tokens, pos):
             p_i, c_i = _layer(layers_p, i), _layer(layers_c, i)
         else:
             p_i, c_i = layers_p[f"layer_{i}"], layers_c[f"layer_{i}"]
-        x = tfm.block_decode(p_i, x, c_i, pos, cfg, kind)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = tfm.block_decode(gather_for_compute(p_i), x, c_i, pos, cfg, kind)
+    x = rms_norm(x, gather_for_compute(params["final_norm"]), cfg.norm_eps)
     return _unembed(params, cfg, x)[:, 0], cache
 
 
@@ -246,12 +275,12 @@ def prefill(params, cfg, batch, max_len: int):
     caches = {}
     for i, kind in enumerate(kinds):
         p_i = _layer(layers_p, i) if stacked else layers_p[f"layer_{i}"]
-        x, caches[f"layer_{i}"] = tfm.block_prefill(p_i, x, cfg, kind, max_len,
-                                                    memory=memory)
+        x, caches[f"layer_{i}"] = tfm.block_prefill(gather_for_compute(p_i), x, cfg, kind,
+                                                    max_len, memory=memory)
     if stacked:
         caches = {name: torch.stack([caches[f"layer_{i}"][name]
                                      for i in range(cfg.num_layers)])
                   for name in caches["layer_0"]}
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, gather_for_compute(params["final_norm"]), cfg.norm_eps)
     logits = _unembed(params, cfg, x[:, -1:])[:, 0]
     return logits, {"layers": caches}

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ParamSpec, swiglu
+from repro_torch.parallel.ctx import constrain_logical
 
 __all__ = ["moe_specs", "route", "capacity", "slots", "moe_apply", "moe_decode_apply"]
 
@@ -98,10 +99,13 @@ def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor
     combine = dispatch * gates_e[..., None]                        # (B,S,E,C) f32
 
     xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), x)
+    xin = constrain_logical(xin, ("experts", "batch", "cap", "act_embed"))
     h = swiglu(torch.einsum("ebcd,edf->ebcf", xin, p["we_gate"].to(x.dtype)),
                torch.einsum("ebcd,edf->ebcf", xin, p["we_up"].to(x.dtype)))
     hout = torch.einsum("ebcf,efd->ebcd", h, p["we_down"].to(x.dtype))
+    hout = constrain_logical(hout, ("experts", "batch", "cap", "act_embed"))
     out = torch.einsum("bsec,ebcd->bsd", combine.to(x.dtype), hout)
+    out = constrain_logical(out, ("batch", "seq", "act_embed"))
 
     # load-balancing aux loss: dropped tokens count, as `assign` holds them
     frac_dispatch = assign.mean(dim=(0, 1))                        # (E,)

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru import lru_decode_step_ref, lru_scan
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel import sharding as shd
 
 __all__ = ["rglru_specs", "rglru_seq", "rglru_apply", "rglru_decode",
            "rglru_cache_shapes", "gelu"]
@@ -61,7 +62,7 @@ def _gates(p, u: torch.Tensor):
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over S. u: (B, S, W); w: (conv_width, W)."""
     cw, S = w.shape[0], u.shape[1]
-    pad = F.pad(u, (0, 0, cw - 1, 0))
+    pad = shd.pad(u, (0, 0, cw - 1, 0))
     return sum(pad[:, i:i + S, :] * w[i] for i in range(cw)) + b
 
 

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import ssd, ssd_decode_step, ssd_ref
 from repro_torch.models.layers import ParamSpec, rms_norm
+from repro_torch.parallel import sharding as shd
 
 __all__ = ["ssm_dims", "ssm_specs", "ssm_seq", "ssm_apply", "ssm_cache_shapes",
            "ssm_decode"]
@@ -64,7 +65,7 @@ def _split(proj: torch.Tensor, cfg):
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv, width W: y[t] = Σ_i w[i]·u[t-W+1+i] + b."""
     W, S = w.shape[0], u.shape[1]
-    pad = F.pad(u, (0, 0, W - 1, 0))
+    pad = shd.pad(u, (0, 0, W - 1, 0))
     return sum(pad[:, i:i + S, :] * w[i] for i in range(W)) + b
 
 
@@ -77,7 +78,7 @@ def _conv_split(conv_out: torch.Tensor, cfg):
 def _gated_out(p: dict, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor, cfg):
     """Skip, gated norm and out-proj: y, xh (..., H, P); z (..., d_inner)."""
     y = y + p["D_skip"].to(z.dtype)[:, None] * xh
-    y = y.reshape(*z.shape)
+    y = shd.reshape(y, *z.shape)
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
     return y @ p["out_proj"].to(z.dtype)
 
@@ -97,7 +98,7 @@ def ssm_seq(p: dict, x: torch.Tensor, cfg, *, prefill: bool = False):
     xs, Bm, Cm = _conv_split(conv_out, cfg)
     dt = F.softplus(dt.float() + p["dt_bias"].float())           # (B,S,H)
     A = -torch.exp(p["A_log"].float())                          # (H,)
-    xh = xs.reshape(B, S, H, P)                                 # a view: no copy
+    xh = shd.reshape(xs, B, S, H, P)                                 # a view: no copy
     if prefill:
         y, state = ssd_ref(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk, return_state=True)
     else:
@@ -134,7 +135,7 @@ def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg) -> torch.Tensor:
     xs, Bm, Cm = _conv_split(conv_out, cfg)
     dt = F.softplus(dt.float() + p["dt_bias"].float())           # (B,H)
     A = -torch.exp(p["A_log"].float())
-    xh = xs.reshape(B, H, P)
+    xh = shd.reshape(xs, B, H, P)
     y, state = ssd_decode_step(cache["state"], xh, dt, A, Bm, Cm)
     out = _gated_out(p, y, xh, z, cfg)[:, None, :]
     cache["conv"].copy_(hist[:, 1:, :])

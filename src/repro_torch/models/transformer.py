@@ -31,8 +31,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import ParamSpec, rms_norm, swiglu
+from repro_torch.parallel.ctx import constrain_logical
+from repro_torch.parallel import sharding as shd
 
-__all__ = ["layer_kinds", "mlp_specs", "block_specs", "mlp_apply",
+__all__ = ["layer_kinds", "mlp_specs", "block_specs", "resid", "mlp_apply",
            "block_apply", "block_prefill", "block_decode"]
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -88,6 +90,18 @@ def block_specs(cfg, kind: str) -> dict:
 
 
 # ------------------------------------------------------------------- apply
+def resid(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream in its logical layout (batch over the DP axes,
+    d_model whole), after every residual add: a sublayer's partial sum (a
+    head- or ff-sharded output projection) is reduced here, as Megatron's
+    all-reduce does. DTensor picks each op's layout greedily from its
+    inputs', so without this pin the next sublayer could take a partial
+    input and run on full weights (gathering a weight is cheaper than
+    reducing an activation, but 16x the work). The identity off a sharding
+    context."""
+    return constrain_logical(x, ("batch", "seq", "act_embed"))
+
+
 def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.mlp_variant == "gelu":
         h = rglru_mod.gelu(x @ p["wi"].to(x.dtype))
@@ -107,8 +121,8 @@ def _ffn(p: dict, x: torch.Tensor, cfg, kind: str):
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     if _is_moe(cfg, kind):
         out, aux = moe_mod.moe_apply(p, h, cfg)
-        return x + out, aux
-    return x + mlp_apply(p, h, cfg), 0.0
+        return resid(x + out), aux
+    return resid(x + mlp_apply(p, h, cfg)), 0.0
 
 
 def _window_for(cfg, kind: str) -> int | None:
@@ -120,7 +134,7 @@ def _window_for(cfg, kind: str) -> int | None:
 def _cross(p: dict, x: torch.Tensor, memory, cfg) -> torch.Tensor:
     """Norm → cross-attention over ``memory`` → residual."""
     hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
-    return x + attn.cross_attn_apply(p["cross"], hc, memory, cfg)
+    return resid(x + attn.cross_attn_apply(p["cross"], hc, memory, cfg))
 
 
 def block_apply(p: dict, x: torch.Tensor, cfg, kind: str, *, memory=None):
@@ -129,12 +143,12 @@ def block_apply(p: dict, x: torch.Tensor, cfg, kind: str, *, memory=None):
     0-d f32 tensor from an MoE layer, else 0.0."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if kind == "ssm":
-        return x + ssm_mod.ssm_apply(p, h, cfg), 0.0
+        return resid(x + ssm_mod.ssm_apply(p, h, cfg)), 0.0
     if kind == "rglru":
-        x = x + rglru_mod.rglru_apply(p, h, cfg)
+        x = resid(x + rglru_mod.rglru_apply(p, h, cfg))
     else:
-        x = x + attn.attn_apply(p, h, cfg, causal=kind != "enc_attn",
-                                window=_window_for(cfg, kind))[0]
+        x = resid(x + attn.attn_apply(p, h, cfg, causal=kind != "enc_attn",
+                                      window=_window_for(cfg, kind))[0])
         if kind == "cross":
             x = _cross(p, x, memory, cfg)
     return _ffn(p, x, cfg, kind)
@@ -151,13 +165,13 @@ def block_prefill(p: dict, x: torch.Tensor, cfg, kind: str, max_len: int, *,
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if kind == "ssm":
         out, cache = _ssm_prefill(p, h, cfg)
-        return x + out, cache                        # mamba block: no FFN
+        return resid(x + out), cache                 # mamba block: no FFN
     if kind == "rglru":
         out, cache = _rglru_prefill(p, h, cfg)
-        return _ffn(p, x + out, cfg, kind)[0], cache
+        return _ffn(p, resid(x + out), cfg, kind)[0], cache
     window = _window_for(cfg, kind)
     out, (k, v) = attn.attn_apply(p, h, cfg, window=window)
-    x = x + out
+    x = resid(x + out)
     cache = _kv_to_cache(k, v, max_len if window is None else min(window, max_len))
     if kind == "cross":
         mk, mv = attn.cross_memory_kv(p["cross"], memory)
@@ -175,8 +189,8 @@ def _kv_to_cache(k: torch.Tensor, v: torch.Tensor, slots: int) -> dict:
         v_c = torch.roll(v[:, -slots:], shift, dims=1)
     else:
         pad = (0, 0, 0, 0, 0, slots - S)     # pad dim 1 at the end
-        k_c = F.pad(k, pad)
-        v_c = F.pad(v, pad)
+        k_c = shd.pad(k, pad)
+        v_c = shd.pad(v, pad)
     return {"k": k_c, "v": v_c}
 
 
@@ -184,7 +198,7 @@ def _conv_tail(u: torch.Tensor, cfg) -> torch.Tensor:
     """The last conv_width - 1 rows of u (B, S, C), left-padded with zeros
     for a shorter prompt: the decode cache's conv history."""
     S, tail_len = u.shape[1], cfg.conv_width - 1
-    return u[:, -tail_len:, :] if S >= tail_len else F.pad(u, (0, 0, tail_len - S, 0))
+    return u[:, -tail_len:, :] if S >= tail_len else shd.pad(u, (0, 0, tail_len - S, 0))
 
 
 def _ssm_prefill(p: dict, h: torch.Tensor, cfg):
@@ -204,7 +218,7 @@ def _rglru_prefill(p: dict, h: torch.Tensor, cfg):
     the scan and then widened to f32, as the reference does."""
     out, u, hseq = rglru_mod.rglru_seq(p, h)
     S, tail_len = u.shape[1], cfg.conv_width - 1
-    tail = u[:, -tail_len:, :] if S >= tail_len else F.pad(u, (0, 0, tail_len - S, 0))
+    tail = u[:, -tail_len:, :] if S >= tail_len else shd.pad(u, (0, 0, tail_len - S, 0))
     return out, {"conv": tail, "h": hseq[:, -1].float()}
 
 
@@ -216,12 +230,12 @@ def block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     "h"} or {"conv", "state"}) is updated in place. Returns x."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if kind == "ssm":
-        return x + ssm_mod.ssm_decode(p, h, cache, cfg)
+        return resid(x + ssm_mod.ssm_decode(p, h, cache, cfg))
     if kind == "rglru":
-        x = x + rglru_mod.rglru_decode(p, h, cache, cfg)
+        x = resid(x + rglru_mod.rglru_decode(p, h, cache, cfg))
     else:
-        x = x + attn.attn_decode(p, h, cache["k"], cache["v"], pos, cfg,
-                                 window=_window_for(cfg, kind))
+        x = resid(x + attn.attn_decode(p, h, cache["k"], cache["v"], pos, cfg,
+                                       window=_window_for(cfg, kind)))
         if kind == "cross":
             x = _cross(p, x, (cache["enc_k"], cache["enc_v"]), cfg)
     return _ffn(p, x, cfg, kind)[0]

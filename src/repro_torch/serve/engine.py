@@ -9,6 +9,12 @@ by one token, each at its own position. Finished slots free at once and the
 next request is admitted. Decoding is greedy (first index on ties, as
 ``jnp.argmax``). A vlm or audio prefill gets zero frontend embeddings, as
 in the reference; a vlm slot's positions count the vision prefix.
+
+With a ``mesh`` and a rule set (the reference's serving rules are
+``make_rules(multi_pod=False, tp2d=True)``) the weights are placed by their
+ParamSpecs, the cache by ``cache_pspecs``, and the steps run sharded
+(:mod:`repro_torch.parallel.steps`); a prefill's row is spliced into each
+rank's own cache shard, so the cache is never gathered.
 """
 
 from __future__ import annotations
@@ -21,7 +27,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.parallel.steps import make_prefill_step, make_serve_step
+from repro_torch.parallel.sharding import index_put_local
+from repro_torch.parallel.steps import (init_cache, make_prefill_step, make_serve_step,
+                                        place_params)
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -46,16 +54,17 @@ class _Slot:
 
 class ServeEngine:
     def __init__(self, cfg, params, *, max_batch: int = 4, max_len: int = 256,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None, rules=None):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine runs on {self.device}")
-        self.cfg, self.params = cfg, params
+        self.cfg = cfg
+        self.params = params if mesh is None else place_params(params, cfg, mesh, rules)
         self.max_batch, self.max_len = max_batch, max_len
-        self.prefill = make_prefill_step(cfg, max_len=max_len)
-        self.decode = make_serve_step(cfg)
-        self.cache = M.init_cache(cfg, max_batch, max_len, device=self.device)
+        self.prefill = make_prefill_step(cfg, max_len=max_len, mesh=mesh, rules=rules)
+        self.decode = make_serve_step(cfg, mesh=mesh, rules=rules)
+        self.cache = init_cache(cfg, max_batch, max_len, self.device, mesh=mesh, rules=rules)
         self.slots = [_Slot() for _ in range(max_batch)]
         self.queue: list[Request] = []
         self.requests: dict[int, Request] = {}
@@ -75,15 +84,19 @@ class ServeEngine:
     def _splice(self, row_cache: dict, b: int) -> None:
         """Copy a batch-1 prefill cache into cache row ``b``. Under
         ``cache["layers"]`` a tensor is a stacked (L, B, ...) leaf; a dict is
-        one unrolled layer, whose leaves are (B, ...)."""
-        with torch.inference_mode():
+        one unrolled layer, whose leaves are (B, ...). A sharded leaf is
+        written on each rank's shard (``index_put_local``)."""
+        rows = torch.tensor([b], device=self.device)
+        with torch.no_grad():
             for name, full in self.cache["layers"].items():
                 row = row_cache["layers"][name]
                 if isinstance(full, dict):
                     for leaf, t in full.items():
-                        t[b] = row[leaf][0]
+                        index_put_local(t, (rows,), row[leaf][0:1])
                 else:
-                    full[:, b] = row[:, 0]
+                    L = full.shape[0]
+                    index_put_local(full, (torch.arange(L, device=self.device),
+                                           rows.expand(L)), row[:, 0])
 
     def prefill_batch(self, prompt: list[int]) -> dict:
         """A batch-1 prefill input: the prompt's tokens and, for vlm or

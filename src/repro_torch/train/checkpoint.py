@@ -9,6 +9,13 @@ Leaves are keyed by their dict path joined with ``|``
 package writes, so a checkpoint written by either package resumes in the
 other: an OAR best-effort job can checkpoint and yield under one and resume
 under the other.
+
+A sharded state (DTensor leaves) is saved as its full arrays: every rank
+takes part in gathering each leaf, rank 0 writes them (as the reference's
+single-host file holds them) and the ranks meet at a barrier before the
+save returns. A restore into a state whose leaves are DTensors places each
+leaf by their layout, each rank keeping its own shard, so a job saved under
+one mesh and rule set resumes under another, or on one device.
 """
 
 from __future__ import annotations
@@ -21,6 +28,10 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.parallel.sharding import full, place
 
 __all__ = ["save", "restore_latest", "latest_step", "list_steps"]
 
@@ -37,18 +48,24 @@ def _flatten(tree, prefix: tuple = ()) -> dict[str, torch.Tensor]:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    t = full(t.detach()).cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def save(ckpt_dir: str, state, step: int, *, keep: int = 3,
          extra_meta: dict | None = None) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    flat = _flatten(state)
+    arrays = {k: _to_numpy(v) for k, v in flat.items()}   # every rank gathers
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    shared = any(isinstance(v, DTensor) for v in flat.values()) and \
+        dist.get_world_size() > 1
+    if shared and dist.get_rank() != 0:
+        dist.barrier()                      # rank 0 writes; wait until it has
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=ckpt_dir)
     try:
-        np.savez(os.path.join(tmp, "state.npz"),
-                 **{k: _to_numpy(v) for k, v in _flatten(state).items()})
+        np.savez(os.path.join(tmp, "state.npz"), **arrays)
         meta = {"step": int(step), **(extra_meta or {})}
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump(meta, f)
@@ -59,6 +76,8 @@ def save(ckpt_dir: str, state, step: int, *, keep: int = 3,
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _gc(ckpt_dir, keep)
+    if shared:
+        dist.barrier()
     return final
 
 
@@ -99,14 +118,15 @@ def _fill(like, flat: dict, prefix: tuple, device):
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(device=device, dtype=like.dtype)
+    t = t.to(device=device, dtype=like.dtype)
+    return place(t, like.placements, like.device_mesh) if isinstance(like, DTensor) else t
 
 
 def restore_latest(ckpt_dir: str, state_like, device="cpu"):
     """Restore the newest checkpoint into the structure and dtypes of
-    ``state_like`` (a nested dict of tensors, e.g. on the ``meta`` device),
-    on ``device``. Returns (state, step), or (None, None) when there is no
-    checkpoint."""
+    ``state_like`` (a nested dict of tensors, e.g. on the ``meta`` device;
+    DTensor leaves give their layouts), on ``device``. Returns (state,
+    step), or (None, None) when there is no checkpoint."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None, None

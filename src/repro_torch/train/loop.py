@@ -5,6 +5,12 @@ OAR-aware without importing OAR: ``preempt_check`` is any callable; a
 cluster runner wires it to the job's cancel flag, so a best-effort training
 job checkpoints and yields within one step of the scheduler asking for its
 resources, and resumes where it stopped.
+
+With a ``mesh`` and a rule set the state lives in DTensors placed by the
+rules and the step runs sharded (:mod:`repro_torch.parallel.steps`); every
+rank draws the same global batch, and the step places its shards. A
+checkpoint holds the full arrays whatever the layout, so a job saved on
+one mesh resumes on another, or on one device.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
                log_every: int = 10,
                preempt_check: Callable[[], bool] | None = None,
                on_metrics: Callable[[int, dict], None] | None = None,
-               device: str | torch.device = "cuda") -> TrainResult:
+               device: str | torch.device = "cuda", mesh=None, rules=None) -> TrainResult:
     """Train ``cfg`` on ``device`` up to step ``steps``. Resumes from the
     newest checkpoint in ``ckpt_dir``, else starts from params drawn by a
     ``torch.Generator`` on the device seeded with ``seed``. Metrics are read
@@ -49,16 +55,17 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
     if global_batch % microbatches:
         raise ValueError(f"global_batch {global_batch} is not a multiple of "
                          f"microbatches {microbatches}")
-    train_step = make_train_step(cfg, opt=opt, microbatches=microbatches)
+    train_step = make_train_step(cfg, opt=opt, microbatches=microbatches, mesh=mesh,
+                                 rules=rules)
     state, start = None, 0
     if ckpt_dir:
         state, restored = ckpt.restore_latest(
-            ckpt_dir, abstract_train_state(cfg, opt=opt), device)
+            ckpt_dir, abstract_train_state(cfg, opt=opt, mesh=mesh, rules=rules), device)
         if restored is not None:
             start = restored
     if state is None:
         state = init_train_state(cfg, torch.Generator(device=device).manual_seed(seed),
-                                 opt=opt, device=device)
+                                 opt=opt, device=device, mesh=mesh, rules=rules)
 
     it = data_iterator(cfg, global_batch, seq_len, seed=seed, start_step=start)
     history, metrics = [], {}

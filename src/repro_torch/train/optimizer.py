@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import torch
 
 __all__ = ["OptConfig", "init_opt", "adamw_update", "global_norm", "tree_leaves",
-           "tree_unflatten"]
+           "tree_unflatten", "tree_map"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -47,15 +47,23 @@ def tree_unflatten(like, leaves: list):
     return _map(lambda _: next(it), like)
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+def tree_map(fn, tree, *rest, is_leaf=None):
+    """``fn`` over the leaves of nested dicts of one structure, in sorted-key
+    order; ``is_leaf`` marks a non-dict leaf (e.g. a (shape, dtype) pair)."""
+    if isinstance(tree, dict) and not (is_leaf and is_leaf(tree)):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf)
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+_map = tree_map
 
 
 def init_opt(params, oc: OptConfig | None = None) -> dict:
+    """Zero moments in ``moments_dtype``, each in its param's layout (a
+    DTensor's moments are DTensors placed as it is)."""
     dt = _DTYPES[(oc or OptConfig()).moments_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=dt).detach()  # noqa: E731
     return {"mu": _map(zeros, params), "nu": _map(zeros, params)}
 
 
