@@ -20,8 +20,9 @@ moonshot-v1-16b-a3b (52.3 GiB of bf16 weights), qwen2.5-14b and
 mistral-nemo-12b at full width, and internvl2-26b (37.0 GiB; each prompt
 follows 256 zero vision embeddings, so give it ``--max-len`` room for them)
 and seamless-m4t-large-v2 (its encoder runs over 1024 zero speech-frame
-embeddings at each prefill); mixtral-8x22b and llama3-405b serve at smoke
-width until the port shards a model (ROADMAP.md item 9).
+embeddings at each prefill); mixtral-8x22b and llama3-405b do not fit one
+card at full width and serve at smoke width here (the dry-run,
+``repro_torch.launch.dryrun``, sizes them on the production meshes).
 ``--device cpu`` serves on the CPU in float32, as the reference launcher
 does off the accelerator. With no card and no ``--device cpu`` it raises.
 
