@@ -37,10 +37,10 @@ nothing is caught and carried on past:
                 its kernels' device time (torch.profiler), back to back and
                 with the L2 cache flushed (by a read) before each call, and
                 by CUDA events as the others (the host's enqueue included);
-                holds the SSD kernel's gradient rule
-                (autograd through the Function) against autograd through the
-                plain version, and times it; holds the flash kernel's
-                autograd Function at the training shapes (its forward output
+                holds the SSD kernel's gradient rule (autograd through its
+                custom op, the model's entry point) against autograd through
+                the plain version, and times it; holds the flash kernel's
+                custom op at the training shapes (its forward output
                 against the plain version, its rule, a plain recompute,
                 against an f64 autograd, in f32 and bf16) and the RG-LRU
                 scan's rule (a reversed scan that launches the kernel once
@@ -996,10 +996,10 @@ def check_ssd(gen, dev, old) -> dict:
 
 
 def check_ssd_grad(gen, dev) -> dict:
-    """The gradient rule on the card: backward through the kernel's
-    autograd.Function (forward: the kernel; backward: ssd_vjp) against
-    autograd through the plain version, for all five inputs; then the
-    rule's time at the training shape."""
+    """The gradient rule on the card: backward through the kernel's custom
+    op, the model's entry point (forward: the kernel, one launch; backward:
+    ssd_vjp, none) against autograd through the plain version, for all five
+    inputs; then the rule's time at the training shape."""
     check = Cases("ssd_scan gradient rule")
     for (B, S, H, P, N, chunk, dt) in ((2, 77, 8, 16, 16, 32, torch.float32),
                                        (8, 2048, 24, 64, 128, 256, torch.bfloat16)):
@@ -1007,10 +1007,13 @@ def check_ssd_grad(gen, dev) -> dict:
         g = torch.randn((B, S, H, P), generator=gen, device=dev).to(dt)
         a = [t.detach().clone().requires_grad_() for t in inputs]
         b = [t.detach().clone().requires_grad_() for t in inputs]
-        ssd_ops._SSDKernel.apply(*a, chunk).backward(g)
+        reset_counts()
+        ssd_ops.ssd(*a, chunk=chunk).backward(g)
+        name = f"B={B} S={S} H={H} P={P} N={N} chunk={chunk} {str(dt)[6:]}"
+        if read_counts() != {**NO_LAUNCHES, "ssd_scan": 1}:
+            fail(f"ssd gradient rule at {name} launched {read_counts()}")
         ssd_ref(*b, chunk=chunk).backward(g)
         torch.cuda.synchronize()
-        name = f"B={B} S={S} H={H} P={P} N={N} chunk={chunk} {str(dt)[6:]}"
         for label, ta, tb in zip(("x", "dt", "A", "Bm", "Cm"), a, b):
             if ta.grad.dtype != tb.grad.dtype:
                 fail(f"ssd gradient rule: {label} gradient dtype {ta.grad.dtype}, "
@@ -1074,14 +1077,14 @@ LRU_GRAD_TIMED = (1, 2048, 2560)
 
 
 def check_flash_grad(gen, dev) -> list:
-    """The flash kernel's autograd Function on the card (forward: the kernel,
-    one launch; backward: flash_vjp) at FLASH_GRAD_CASES: its forward output
-    against attention_ref at TOL, and its gradients against an f64 autograd
-    over the gradient's scale, in f32 (F32_FLASH_GRAD_REL) and bf16
+    """The flash kernel's custom op, the model's entry point, on the card
+    (forward: the kernel, one launch; backward: flash_vjp, none) at
+    FLASH_GRAD_CASES: its forward output against attention_ref at TOL, and
+    its gradients against an f64 autograd over the gradient's scale, in f32 (F32_FLASH_GRAD_REL) and bf16
     (BF16_GRAD_REL, beside autograd through attention_ref in bf16; in f32
     flash_vjp is that autograd itself). Then the rule's time at
     FLASH_GRAD_TIMED, beside SDPA's backward and the bound."""
-    check, rel, rel32 = Cases("flash_attention autograd Function forward"), [], []
+    check, rel, rel32 = Cases("flash_attention custom op forward"), [], []
     for (B, S, H, K, D, window) in FLASH_GRAD_CASES:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -1090,7 +1093,7 @@ def check_flash_grad(gen, dev) -> list:
             label = f"B={B} S={S} H={H} K={K} D={D} window={window} {str(dt)[6:]}"
             x = [t.clone().requires_grad_() for t in (q, k, v)]
             reset_counts()
-            out = flash_ops._FlashKernel.apply(*x, True, window)
+            out = flash_ops.flash_attention(*x, causal=True, window=window)
             out.backward(g)
             if read_counts() != {**NO_LAUNCHES, "flash_attention": 1}:
                 fail(f"flash gradient rule at {label} launched {read_counts()}")
@@ -1148,8 +1151,8 @@ def check_flash_grad(gen, dev) -> list:
 
 
 def check_lru_grad(gen, dev) -> list:
-    """The scan's autograd Function on the card (forward: the kernel;
-    backward: lru_scan_vjp, one more launch of the kernel) against autograd
+    """The scan's custom op, the model's entry point, on the card (forward:
+    the kernel; backward: lru_scan_vjp, one more launch of the kernel) against autograd
     through lru_scan_ref and through an f64 walk: in f32 its error against
     the f64 gradient may be twice the plain autograd's (or F32_GRAD_FLOOR of
     the scale), in bf16 BF16_GRAD_REL of the scale; at LRU_GRAD_CASES. Then
@@ -1168,7 +1171,7 @@ def check_lru_grad(gen, dev) -> list:
             label = f"{kind} B={B} S={S} W={W} {str(dt)[6:]}"
             x = [t.clone().requires_grad_() for t in (a, b)]
             reset_counts()
-            h = lru_ops._LRUScanKernel.apply(*x)
+            h = lru_ops.lru_scan(*x)
             forward = lru_scan_kernel.launches
             h.backward(g)
             if (forward, lru_scan_kernel.launches) != (1, 2):

@@ -19,8 +19,6 @@ fallback: the forward never runs the plain version on the card.
 The op carries a DTensor sharding rule (batch; q and kv heads together;
 never the sequence; or replicate) and a FLOP formula, so a sharded step
 runs each rank's shard through the kernel and the dry-run counts it.
-:class:`_FlashKernel` is the same kernel and rule as an autograd Function,
-which times them without the op's dispatch.
 """
 
 from __future__ import annotations
@@ -70,21 +68,6 @@ def flash_vjp(grad_o: Tensor, q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     return torch.autograd.grad(o, inputs, grad_o)
 
 
-class _FlashKernel(torch.autograd.Function):
-    """Forward: the CUDA kernel. Backward: :func:`flash_vjp`."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return flash_attention_kernel(q, k, v, causal=causal, window=window)
-
-    @staticmethod
-    def backward(ctx, grad_o):
-        return (*flash_vjp(grad_o, *ctx.saved_tensors, causal=ctx.causal,
-                           window=ctx.window), None, None)
-
-
 def _window(window: int) -> int | None:
     return window or None            # the ops take 0 for "no window"
 
@@ -96,13 +79,13 @@ def _flash_op(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int) -> Ten
 
 
 @_flash_op.register_kernel("cuda")
-def _(q, k, v, causal, window):
+def _on_cuda(q, k, v, causal, window):
     return flash_attention_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=causal, window=_window(window))
 
 
 @_flash_op.register_kernel("cpu")
-def _(q, k, v, causal, window):
+def _on_cpu(q, k, v, causal, window):
     return attention_ref(q, k, v, causal=causal, window=_window(window)).contiguous()
 
 

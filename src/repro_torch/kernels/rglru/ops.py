@@ -18,8 +18,6 @@ kernel). The adjoint of a linear recurrence is the same recurrence run
 backwards, so the port's gradient rule, :func:`lru_scan_vjp`, is one more
 scan: through :func:`lru_scan` itself, so on the card it launches the
 kernel once more (on flipped inputs) and never walks S steps in Python.
-:class:`_LRUScanKernel` is the same kernel and rule as an autograd
-Function, which times them without the op's dispatch.
 """
 
 from __future__ import annotations
@@ -61,33 +59,18 @@ def lru_scan_vjp(grad_h: torch.Tensor, a: torch.Tensor, h: torch.Tensor):
     return da, lam
 
 
-class _LRUScanKernel(torch.autograd.Function):
-    """Forward: the CUDA kernel. Backward: :func:`lru_scan_vjp`, a reversed
-    scan that launches the kernel again."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        h = lru_scan_kernel(a, b)
-        ctx.save_for_backward(a, h)
-        return h
-
-    @staticmethod
-    def backward(ctx, grad_h):
-        return lru_scan_vjp(grad_h, *ctx.saved_tensors)
-
-
 @torch.library.custom_op("repro_torch::lru_scan", mutates_args=())
 def _lru_op(a: Tensor, b: Tensor) -> Tensor:
     raise ValueError(f"lru_scan: unsupported device {a.device}")
 
 
 @_lru_op.register_kernel("cuda")
-def _(a, b):
+def _on_cuda(a, b):
     return lru_scan_kernel(a.contiguous(), b.contiguous())
 
 
 @_lru_op.register_kernel("cpu")
-def _(a, b):
+def _on_cpu(a, b):
     return lru_scan_ref(a, b).contiguous()
 
 

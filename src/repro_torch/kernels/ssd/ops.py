@@ -14,10 +14,11 @@ no backward kernel), and the port's is the same thing written out:
 function from the saved inputs and takes its vector-Jacobian product.
 That is the gradient rule, not a fallback: the forward never runs the
 plain version on the card. The op carries a DTensor sharding rule (batch,
-or heads; never the sequence; or replicate) and a FLOP formula. :class:`_SSDKernel` is the same kernel and rule as an
-autograd Function, which times them without the op's dispatch. The
-one-token decode step is plain PyTorch (:func:`ssd_decode_step`), as it is
-plain jnp in the reference.
+or heads; never the sequence; or replicate) and a FLOP formula. The
+prefill's scan, which also returns the final state, is the plain chunked
+scan (:func:`ssd_with_state`), as the reference's prefill runs its plain
+``ssd_ref``; the one-token decode step is plain PyTorch
+(:func:`ssd_decode_step`), as it is plain jnp in the reference.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import functools
 
 import torch
 from torch import Tensor
-from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
@@ -34,7 +35,7 @@ from repro_torch.kernels.ssd.kernel import ssd_kernel
 from repro_torch.kernels.sharded import layout_of, on_shards
 from repro_torch.kernels.ssd.ref import ssd_decode_step_ref, ssd_ref
 
-__all__ = ["ssd", "ssd_vjp", "ssd_decode_step", "ssd_flops"]
+__all__ = ["ssd", "ssd_vjp", "ssd_with_state", "ssd_decode_step", "ssd_flops"]
 
 ssd_decode_step = ssd_decode_step_ref
 
@@ -75,20 +76,6 @@ def ssd_vjp(grad_y: Tensor, x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Te
     return torch.autograd.grad(y, inputs, grad_y)
 
 
-class _SSDKernel(torch.autograd.Function):
-    """Forward: the CUDA kernel. Backward: :func:`ssd_vjp`."""
-
-    @staticmethod
-    def forward(ctx, x, dt, A, Bm, Cm, chunk):
-        ctx.save_for_backward(x, dt, A, Bm, Cm)
-        ctx.chunk = chunk
-        return ssd_kernel(x, dt, A, Bm, Cm, chunk=chunk)
-
-    @staticmethod
-    def backward(ctx, grad_y):
-        return (*ssd_vjp(grad_y, *ctx.saved_tensors, chunk=ctx.chunk), None)
-
-
 # ------------------------------------------------------------------ forward
 @torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
 def _ssd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor, chunk: int) -> Tensor:
@@ -106,13 +93,13 @@ def _packed(x, Bm, Cm):
 
 
 @_ssd_op.register_kernel("cuda")
-def _(x, dt, A, Bm, Cm, chunk):
+def _on_cuda(x, dt, A, Bm, Cm, chunk):
     x, Bm, Cm = _packed(x, Bm, Cm)
     return ssd_kernel(x, dt.contiguous(), A.contiguous(), Bm, Cm, chunk=chunk)
 
 
 @_ssd_op.register_kernel("cpu")
-def _(x, dt, A, Bm, Cm, chunk):
+def _on_cpu(x, dt, A, Bm, Cm, chunk):
     return ssd_ref(x, dt, A, Bm, Cm, chunk=chunk).contiguous()
 
 
@@ -182,3 +169,22 @@ def ssd(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor, *,
         chunk: int = 256) -> Tensor:
     """Mamba-2 SSD scan. x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm, Cm: (B,S,N)."""
     return _ssd_op(x, dt, A, Bm, Cm, chunk)
+
+
+# Per mesh dim, the final state's (B, H, P, N) placement for each layout.
+_STATE = {Replicate(): Replicate(), Shard(0): Shard(0), Shard(2): Shard(1)}
+
+
+def ssd_with_state(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor, *,
+                   chunk: int = 256) -> tuple[Tensor, Tensor]:
+    """The prefill's scan: :func:`ssd_ref` with the final state (B, H, P, N)
+    in f32, which the kernel does not return. On DTensors it runs on each
+    rank's shards, laid out as the op's sharding rule lays them out: per
+    mesh dim, the batch or the heads where x is sharded so, else
+    replicated."""
+    rule = functools.partial(ssd_ref, chunk=chunk, return_state=True)
+    if not isinstance(x, DTensor):
+        return rule(x, dt, A, Bm, Cm)
+    layout = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in x.placements)
+    outs = (layout, tuple(_STATE[p] for p in layout))
+    return on_shards(rule, outs, _per_input(_IN, layout), x, dt, A, Bm, Cm)

@@ -21,8 +21,7 @@ one-token recurrence of the decode path.
 from __future__ import annotations
 
 import torch
-
-from repro_torch.parallel import sharding as shd
+import torch.nn.functional as F
 
 __all__ = ["ssd_ref", "ssd_decode_step_ref"]
 
@@ -38,10 +37,10 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor
     Q = min(chunk, S)
     pad = (-S) % Q
     if pad:                      # padded steps have dt = 0: they change nothing
-        x = shd.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = shd.pad(dt, (0, 0, 0, pad))
-        Bm = shd.pad(Bm, (0, 0, 0, pad))
-        Cm = shd.pad(Cm, (0, 0, 0, pad))
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
     T = x.shape[1]
     nc = T // Q
 

@@ -8,7 +8,8 @@ The casts sit where the reference puts them: the softplus of dt and
 compute dtype. The full-sequence mixer (:func:`ssm_apply`, training) and
 the prompt pass (``transformer._ssm_prefill``, serving) share one body,
 :func:`ssm_seq`: training scans with :func:`ssd` (the kernel on the card),
-the prefill with the plain scan, which also returns the final state, as
+the prefill with the plain scan (:func:`ssd_with_state`, on each rank's
+shards), which also returns the final state, as
 the reference's prefill does.
 """
 
@@ -17,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd import ssd, ssd_decode_step, ssd_ref
+from repro_torch.kernels.ssd import ssd, ssd_decode_step, ssd_with_state
 from repro_torch.models.layers import ParamSpec, rms_norm
 from repro_torch.parallel import sharding as shd
 
@@ -100,7 +101,7 @@ def ssm_seq(p: dict, x: torch.Tensor, cfg, *, prefill: bool = False):
     A = -torch.exp(p["A_log"].float())                          # (H,)
     xh = shd.reshape(xs, B, S, H, P)                                 # a view: no copy
     if prefill:
-        y, state = ssd_ref(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk, return_state=True)
+        y, state = ssd_with_state(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
     else:
         y, state = ssd(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk), None
     return _gated_out(p, y, xh, z, cfg), conv_in, state

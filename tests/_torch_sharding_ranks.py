@@ -8,10 +8,12 @@ import traceback
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import configs
 from repro_torch.data.pipeline import make_batch
+from repro_torch.kernels.ssd import ssd_with_state
 from repro_torch.models import model as M
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import steps
@@ -71,6 +73,37 @@ def serve(cfg, params, mesh=None, rules=None):
     return [r.generated for r in engine.run()]
 
 
+# x's placements on the 2 x 2 mesh for the prefill's scan on shards: the
+# batch and heads layouts of the SSD rule, and a sequence shard, which the
+# rule never keeps (that mesh dim replicates)
+SCAN_LAYOUTS = {"batch-heads": (Shard(0), Shard(2)), "heads-batch": (Shard(2), Shard(0)),
+                "replicate-heads": (Replicate(), Shard(2)), "seq-heads": (Shard(1), Shard(2))}
+
+
+def scan_inputs():
+    """(x, dt, A, Bm, Cm) of the SSD scan, seeded: B=4, S=22 (ragged against
+    chunk 8), H=4, P=8, N=8."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 22, 4, 8))
+    dt = rng.uniform(0.01, 0.5, (4, 22, 4))
+    A = -rng.uniform(0.5, 2.0, (4,))
+    Bm, Cm = rng.standard_normal((2, 4, 22, 8))
+    return [torch.from_numpy(t.astype(np.float32)) for t in (x, dt, A, Bm, Cm)]
+
+
+def scan_on_shards(mesh):
+    """ssd_with_state with x placed by each of SCAN_LAYOUTS (the rest
+    replicated): y and the final state, gathered."""
+    res = {}
+    for name, layout in SCAN_LAYOUTS.items():
+        x, *rest = scan_inputs()
+        args = [shd.place(x, layout, mesh)] + [shd.place(t, (Replicate(),) * 2, mesh)
+                                               for t in rest]
+        y, state = ssd_with_state(*args, chunk=8)
+        res[name] = (shd.full(y).numpy(), shd.full(state).numpy())
+    return res
+
+
 def _mesh(rank, init_file):
     from torch.distributed.device_mesh import init_device_mesh
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
@@ -105,14 +138,19 @@ def train_cases(rank, init_file, tmp, out, cases=TRAIN_CASES):
 
 
 def serve_and_checkpoint(rank, init_file, tmp, out):
-    """granite-smoke served under tp2d; tiny-smoke trained under fsdp by
+    """granite-smoke served under tp2d and mamba2-smoke under baseline; the
+    prefill's SSD scan on shards; tiny-smoke trained under fsdp by
     train_loop, checkpointed into ``tmp``/ckpt."""
     def body(mesh):
         cfg = smoke("granite-8b")
         tokens = serve(cfg, M.init_params(cfg, torch.Generator().manual_seed(0)), mesh,
                        shd.RULES["tp2d"])
+        m2 = smoke("mamba2-130m")
+        m2_tokens = serve(m2, M.init_params(m2, torch.Generator().manual_seed(0)), mesh,
+                          shd.RULES["baseline"])
+        scans = scan_on_shards(mesh)
         train_loop(smoke("tiny"), steps=CKPT_STEPS, global_batch=B, seq_len=S,
                    ckpt_dir=f"{tmp}/ckpt", log_every=1, device="cpu", mesh=mesh,
                    rules=shd.RULES["fsdp"])
-        return {"serve": tokens}
+        return {"serve": tokens, "serve_mamba2": m2_tokens, "scan": scans}
     _run(rank, init_file, out, body)

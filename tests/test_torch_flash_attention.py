@@ -3,7 +3,7 @@
 vs the reference Pallas kernel in interpret mode and vs ``attention_ref``,
 over the grid of tests/test_kernels.py; the kernel's gradient rule
 (``flash_vjp``) vs ``jax.vjp`` of the reference ``attention_ref``, and the
-autograd Function's wiring. The CUDA kernel itself is held against the
+custom op's wiring. The CUDA kernel itself is held against the
 plain version on the card by chip_smoke.py (phase 3)."""
 
 import math
@@ -111,10 +111,11 @@ def test_flash_vjp_matches_jax_grad(B, S, H, K, D, causal, window):
 
 
 def test_flash_function_runs_kernel_forward_and_rule_backward(monkeypatch):
-    """The Function's wiring on the CPU, with the kernel stood in for by the
-    plain version: the forward calls the kernel once with the masks, the
-    backward calls flash_vjp with them and gives autograd's gradients
-    through attention_ref."""
+    """The custom op's wiring on the CPU: CPU tensors take the op's CUDA
+    implementation for this test, with the kernel stood in for by the plain
+    version. The forward calls the kernel once with the masks, the backward
+    calls flash_vjp with them and gives autograd's gradients through
+    attention_ref."""
     calls = []
 
     def fake_kernel(q, k, v, *, causal, window):
@@ -131,7 +132,11 @@ def test_flash_function_runs_kernel_forward_and_rule_backward(monkeypatch):
     a = [t.clone().requires_grad_() for t in (q, k, v)]
     b = [t.clone().requires_grad_() for t in (q, k, v)]
     g = torch.randn(2, 40, 4, 16, generator=torch.Generator().manual_seed(0))
-    flash_ops._FlashKernel.apply(*a, True, 8).backward(g)
+    flash_ops._flash_op.register_kernel("cpu", flash_ops._on_cuda)
+    try:
+        flash_ops.flash_attention(*a, causal=True, window=8).backward(g)
+    finally:
+        flash_ops._flash_op.register_kernel("cpu", flash_ops._on_cpu)
     attention_ref(*b, causal=True, window=8).backward(g)
     assert calls == [("kernel", True, 8), ("vjp", True, 8)]
     for ta, tb in zip(a, b):

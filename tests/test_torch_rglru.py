@@ -3,7 +3,7 @@ carried weights: the plain scan (the CPU path of
 ``repro_torch.kernels.rglru.lru_scan``) vs the reference Pallas kernel in
 interpret mode and vs ``lru_scan_ref``; an emulation of the CUDA kernel's
 chunked arithmetic vs both; the scan's gradient rule (a reversed scan) vs
-``jax.vjp`` of the reference scan, and the autograd Function's wiring; the
+``jax.vjp`` of the reference scan, and the custom op's wiring; the
 decode step; the recurrent mixer's training forward, prefill and decode;
 and recurrentgemma-smoke's prefill and decode steps with every cache leaf.
 The CUDA kernel itself is held against the plain version on the card by
@@ -209,10 +209,11 @@ def test_reversed_scan_rule_matches_jax_grad(S):
 
 
 def test_scan_function_runs_kernel_forward_and_rule_backward(monkeypatch):
-    """The Function's wiring on the CPU, with the kernel stood in for by the
-    plain version: the forward calls the kernel once, the backward one more
-    scan (the reversed one, through lru_scan), and the gradients are those
-    autograd gives through lru_scan_ref."""
+    """The custom op's wiring on the CPU: CPU tensors take the op's CUDA
+    implementation for this test, with the kernel stood in for by the plain
+    version. The forward calls the kernel once, the backward one more scan
+    (the reversed one, through lru_scan, so the kernel once more), and the
+    gradients are those autograd gives through lru_scan_ref."""
     calls = {"kernel": 0, "scan": 0}
     scan = lru_ops.lru_scan
 
@@ -229,9 +230,13 @@ def test_scan_function_runs_kernel_forward_and_rule_backward(monkeypatch):
     a, b, g = (torch.from_numpy(x) for x in _rule_inputs(45, seed=9))
     x = [t.clone().requires_grad_() for t in (a, b)]
     y = [t.clone().requires_grad_() for t in (a, b)]
-    lru_ops._LRUScanKernel.apply(*x).backward(g)
+    lru_ops._lru_op.register_kernel("cpu", lru_ops._on_cuda)
+    try:
+        scan(*x).backward(g)              # the op itself; lru_ops.lru_scan counts
+    finally:
+        lru_ops._lru_op.register_kernel("cpu", lru_ops._on_cpu)
     lru_scan_ref(*y).backward(g)
-    assert calls == {"kernel": 1, "scan": 1}
+    assert calls == {"kernel": 2, "scan": 1}
     for tx, ty in zip(x, y):
         torch.testing.assert_close(tx.grad, ty.grad, rtol=1e-5, atol=1e-5)
 

@@ -20,8 +20,11 @@ the flash rule gathers q's heads), mamba2-smoke under fsdp and
 moonshot-smoke under baseline, each against the one-device port (loss
 within 1e-5 relative, every gradient leaf within 1e-4 of its scale, the
 updated params within 1e-4);
-granite-smoke served under tp2d (greedy tokens equal); and a checkpoint
-saved under fsdp on the four ranks, restored on one device.
+granite-smoke served under tp2d and mamba2-smoke under baseline (greedy
+tokens equal); the mamba2 prefill's SSD scan with its final state on each
+rank's shards, in the batch and heads layouts and with a sequence shard
+(replicated), against the plain scan; and a checkpoint saved under fsdp on
+the four ranks, restored on one device.
 """
 
 import functools
@@ -217,6 +220,21 @@ def test_tp2d_serving_matches_one_device(serve_ckpt_results):
     cfg = W.smoke("granite-8b")
     tokens = W.serve(cfg, TM.init_params(cfg, torch.Generator().manual_seed(0)))
     assert serve_ckpt_results["serve"] == tokens
+
+
+def test_mamba2_serving_matches_one_device(serve_ckpt_results):
+    cfg = W.smoke("mamba2-130m")
+    tokens = W.serve(cfg, TM.init_params(cfg, torch.Generator().manual_seed(0)))
+    assert serve_ckpt_results["serve_mamba2"] == tokens
+
+
+@pytest.mark.parametrize("layout", list(W.SCAN_LAYOUTS))
+def test_prefill_scan_on_shards_matches_plain(serve_ckpt_results, layout):
+    from repro_torch.kernels.ssd import ssd_ref
+    y, state = ssd_ref(*W.scan_inputs(), chunk=8, return_state=True)
+    s_y, s_state = serve_ckpt_results["scan"][layout]
+    np.testing.assert_allclose(s_y, y.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(s_state, state.numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_fsdp_checkpoint_restores_on_one_device(serve_ckpt_results, tmp_path):

@@ -4,7 +4,7 @@ carried weights: the plain scan (the CPU path of
 mode and vs the reference ``ssd_ref``; the final state the mamba2 prefill
 takes from ``ssd_ref`` and the one-token decode step, vs the reference's;
 the kernel's gradient rule vs ``jax.grad`` through the reference; the
-``autograd.Function`` that wraps the kernel; and the Mamba-2 mixer
+wiring of the custom op that wraps the kernel; and the Mamba-2 mixer
 ``ssm_apply``. The CUDA kernel itself is held
 against the plain version on the card by chip_smoke.py (phase 3)."""
 
@@ -160,9 +160,10 @@ def test_gradient_rule_matches_jax_grad(B, S, H, P, N, chunk):
 
 
 def test_autograd_function_runs_kernel_forward_and_rule_backward(monkeypatch):
-    """The Function's wiring on the CPU, with the kernel stood in for by the
-    plain version: the forward calls the kernel once, the backward calls
-    ssd_vjp and gives the gradients autograd gives through ssd_ref."""
+    """The custom op's wiring on the CPU: CPU tensors take the op's CUDA
+    implementation for this test, with the kernel stood in for by the plain
+    version. The forward calls the kernel once, the backward calls ssd_vjp
+    and gives the gradients autograd gives through ssd_ref."""
     calls = {"kernel": 0, "vjp": 0}
 
     def fake_kernel(*a, chunk):
@@ -179,7 +180,11 @@ def test_autograd_function_runs_kernel_forward_and_rule_backward(monkeypatch):
     a = [t.clone().requires_grad_() for t in inputs]
     b = [t.clone().requires_grad_() for t in inputs]
     g = torch.randn(2, 45, 3, 16, generator=torch.Generator().manual_seed(0))
-    ssd_ops._SSDKernel.apply(*a, 32).backward(g)
+    ssd_ops._ssd_op.register_kernel("cpu", ssd_ops._on_cuda)
+    try:
+        ssd_ops.ssd(*a, chunk=32).backward(g)
+    finally:
+        ssd_ops._ssd_op.register_kernel("cpu", ssd_ops._on_cpu)
     ssd_ref(*b, chunk=32).backward(g)
     assert calls == {"kernel": 1, "vjp": 1}
     for ta, tb in zip(a, b):
