@@ -9,10 +9,11 @@ stdout, "chip_smoke FAILED in phase <n> <name> [<arch>]: <cause>" (an
 exception adds the last frames of its traceback), and exits with code 1;
 nothing is caught and carried on past:
   1. device   — a CUDA card must be visible; prints its name and power limit;
-  2. build    — builds the hand-written kernels from src/repro_torch/csrc,
-                one nvcc per source, all started together (with --old-src,
-                another design's flash_attention.cu, ssd_scan.cu and
-                lru_scan.cu, those of them that DIR holds, beside them);
+  2. build    — builds the hand-written kernels from src/repro_torch/csrc
+                (flash_attention.cu, flash_attention_bwd.cu, lru_scan.cu,
+                ssd_scan.cu), one nvcc per source, all started together
+                (with --old-src, another design's sources of those names,
+                those of them that DIR holds, beside them);
                 reads registers, spills and shared memory from the
                 -Xptxas -v logs and counts HMMA (mma.sync) and LDGSTS
                 (cp.async) instructions in the SASS (cuobjdump);
@@ -47,7 +48,15 @@ nothing is caught and carried on past:
                 more) against autograd through the plain scan in f32 and an
                 f64 autograd in bf16 (bf16 errors over the gradient's scale),
                 and times each rule beside its bound (flash's in f32 and bf16,
-                beside SDPA's backward);
+                beside SDPA's backward); holds the flash backward kernel (the
+                flash op's gradient under attn_chunked) against its plain
+                version, flash_bwd_ref, in f32 and bf16 over each gradient's
+                scale (BWD_REL), at the rule's shapes, phase 7's chunked
+                shapes (CHUNKED_FLASH, 4096 a row; the forward kernel is held
+                there too), seamless's cross-attention (not causal, Sq != Sk)
+                and head_dim 8, checks the op under chunked launches it once,
+                and times it there beside flash_bwd_ref, flash_vjp, SDPA's
+                backward and its bound;
   4. model    — MODEL_CHECKS (granite-, recurrentgemma-, mamba2-, qwen2.5-,
                 mistral-nemo- with head_dim 32, llama3-, mixtral-, moonshot-,
                 internvl2- and seamless-smoke) in float32 on the card against
@@ -95,6 +104,13 @@ nothing is caught and carried on past:
                 grad_norm, ms/step, tokens/s, peak memory; then one more step
                 of each under torch.profiler: kernel time, the port kernels'
                 and their gradient rules' shares, the device's idle share;
+                then tiny (8 x 4096) and recurrentgemma-2b (4 x 4096 in 4
+                microbatches: D = 256, window 2048, K = 1) at full width with
+                ModelConfig.attn_chunked on and off from one seed (CHUNKED_RUNS):
+                every step's loss equal within CHUNKED_LOSS_REL, launches
+                matched (one backward-kernel launch per attention per
+                microbatch with the flag), ms/step and peak of both, the peak
+                lower with the flag for tiny and never higher;
   8. runner   — the port's ClusterRunner (the OAR bridge) runs tiny at full
                 width (smoke: false, 8 x 2048 tokens) as jobs, with an
                 in-memory sqlite jobs table and a recorder standing in for
@@ -115,13 +131,15 @@ nothing is caught and carried on past:
                 and launches equal to phase 5's; then, with the group
                 destroyed, the dry-run (repro_torch.launch.dryrun.run_cell)
                 of llama3-405b x train_4k (fsdp), mixtral-8x22b x
-                decode_32k (tp2d) and recurrentgemma-2b x long_500k
-                (baseline) on the meta device under a fake 256-rank group
+                decode_32k (tp2d), recurrentgemma-2b x long_500k
+                (baseline) and qwen2.5-14b x train_4k under --chunked
+                (baseline_chunked) on the meta device under a fake 256-rank group
                 (16 x 16): GiB per device, fits in 80 GB, the dominant
                 roofline term (H100 spec numbers), useful_ratio; one line.
 A summary block follows (phase 10: card, build time, each library's registers,
 spills, tensor-core and cp.async instruction counts, with each kernel's in
-src/repro_torch/_build/chip_smoke_build.json; the kernel and rule times
+src/repro_torch/_build/chip_smoke_build.json, where each kernel's other timed
+shapes and its gradient rule's timings go too; the kernel and rule times
 beside their bounds). The whole output stays under 20,000 bytes.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel record. Imports nothing of JAX or of the JAX package.
@@ -191,6 +209,7 @@ try:
     from repro_torch import configs  # noqa: E402
     from repro_torch.kernels import build  # noqa: E402
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention_kernel  # noqa: E402
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel, flash_bwd_ref  # noqa: E402
     from repro_torch.kernels.flash_attention import kernel as flash_module  # noqa: E402
     from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
     from repro_torch.kernels.rglru import kernel as lru_module  # noqa: E402
@@ -347,20 +366,23 @@ def leaves(tree, prefix=""):
 
 def reset_counts() -> None:
     flash_attention_kernel.launches = 0
+    flash_attention_bwd_kernel.launches = 0
     lru_scan_kernel.launches = 0
     ssd_kernel.launches = 0
 
 
 def read_counts() -> dict:
     return {"flash_attention": flash_attention_kernel.launches,
+            "flash_attention_bwd": flash_attention_bwd_kernel.launches,
             "lru_scan": lru_scan_kernel.launches,
             "ssd_scan": ssd_kernel.launches}
 
 
-NO_LAUNCHES = {"flash_attention": 0, "lru_scan": 0, "ssd_scan": 0}
+NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "lru_scan": 0, "ssd_scan": 0}
 
 
-SHORT = {"flash_attention": "flash", "lru_scan": "lru", "ssd_scan": "ssd"}
+SHORT = {"flash_attention": "flash", "flash_attention_bwd": "flash_bwd", "lru_scan": "lru",
+         "ssd_scan": "ssd"}
 
 
 def counts_str(counts: dict) -> str:
@@ -388,8 +410,8 @@ def launches_per_prefill(cfg) -> dict:
     does (the kernel returns y only); the SSD kernel runs on the training
     path."""
     kinds = tfm.layer_kinds(cfg)
-    return {"flash_attention": _flash_per_pass(cfg), "lru_scan": kinds.count("rglru"),
-            "ssd_scan": 0}
+    return {**NO_LAUNCHES, "flash_attention": _flash_per_pass(cfg),
+            "lru_scan": kinds.count("rglru")}
 
 
 def launches_per_decode(cfg) -> dict:
@@ -405,10 +427,15 @@ def launches_per_train_step(cfg, microbatches: int = 1) -> dict:
     layer; with remat (``cfg.remat``, on by default, as in the reference)
     the backward runs each layer's forward again first, the same launches
     once more; then the scan's rule launches the scan once more, and the
-    flash and SSD rules (plain recomputes) launch nothing."""
+    SSD rule (a plain recompute) launches nothing. The flash gradient
+    launches nothing (``flash_vjp``, a plain recompute) unless
+    ``cfg.attn_chunked``: then the backward kernel once per chunked
+    attention, every attention of the pass but a ``cross`` layer's
+    cross-attention, to which the reference passes no flag."""
     kinds = tfm.layer_kinds(cfg)
     passes = 2 if cfg.remat else 1
-    per_mb = {"flash_attention": passes * _flash_per_pass(cfg),
+    chunked = _flash_per_pass(cfg) - kinds.count("cross") if cfg.attn_chunked else 0
+    per_mb = {"flash_attention": passes * _flash_per_pass(cfg), "flash_attention_bwd": chunked,
               "lru_scan": (passes + 1) * kinds.count("rglru"),
               "ssd_scan": passes * kinds.count("ssm")}
     return {k: n * microbatches for k, n in per_mb.items()}
@@ -429,8 +456,11 @@ def phase_device() -> str:
 
 
 # ------------------------------------------------------------------ build
-KERNEL_MODULES = {"flash_attention": flash_module, "lru_scan": lru_module,
-                  "ssd_scan": ssd_module}
+# Each source, and the loader that builds it at first use.
+KERNEL_SOURCES = {"flash_attention": (flash_module.SOURCE, flash_module._library),
+                  "flash_attention_bwd": (flash_module.SOURCE_BWD, flash_module._bwd_library),
+                  "lru_scan": (lru_module.SOURCE, lru_module._library),
+                  "ssd_scan": (ssd_module.SOURCE, ssd_module._library)}
 OLD_BUILD_DIR = build.BUILD_DIR / "old"
 
 
@@ -500,18 +530,18 @@ def _built(source: Path, build_dir: Path) -> Path:
 
 
 def phase_build(old_src: Path | None) -> dict:
-    """Builds the three sources, one nvcc each, all started together (and
+    """Builds the four sources, one nvcc each, all started together (and
     the old design's sources that ``old_src`` holds beside them, into their
     own directory); then reads registers, spills and shared memory from the
     -Xptxas -v logs and counts HMMA and LDGSTS in the SASS."""
     at_phase(2, "build")
     t0 = time.perf_counter()
-    jobs = {name: (lambda m=m: m._library()) for name, m in KERNEL_MODULES.items()}
+    jobs = {name: loader for name, (_, loader) in KERNEL_SOURCES.items()}
     if old_src is not None:
-        old = [name for name in KERNEL_MODULES if (old_src / f"{name}.cu").exists()]
+        old = [name for name in KERNEL_SOURCES if (old_src / f"{name}.cu").exists()]
         if not old:
             fail(f"--old-src {old_src} holds none of "
-                 f"{', '.join(f'{n}.cu' for n in KERNEL_MODULES)}")
+                 f"{', '.join(f'{n}.cu' for n in KERNEL_SOURCES)}")
         for name in old:
             src = old_src / f"{name}.cu"
             jobs[f"old {name}"] = lambda src=src: build.build_library(src, OLD_BUILD_DIR)
@@ -520,8 +550,8 @@ def phase_build(old_src: Path | None) -> dict:
         libs = {name: fut.result() for name, fut in futures.items()}
     seconds = time.perf_counter() - t0
     info = {}
-    for name, m in KERNEL_MODULES.items():
-        path = _built(m.SOURCE, build.BUILD_DIR)
+    for name, (source, _) in KERNEL_SOURCES.items():
+        path = _built(source, build.BUILD_DIR)
         kernels = ptxas_info(path.with_suffix(".log"))
         for fn, (hmma, ldgsts) in sass_counts(path).items():
             if fn in kernels:
@@ -673,6 +703,8 @@ def check_flash(gen, dev, old) -> dict:
               (1, 340, 340, 40, 8, 128, torch.bfloat16, True, None)]   # qwen2.5-14b: G=5
     for dt in (torch.bfloat16, torch.float32):
         cases += [case + (dt,) + mask for case, mask in SEAMLESS_INTERNVL_FLASH]
+    for dt in (torch.float32, torch.bfloat16):    # phase 7's chunked runs, 4096 a row
+        cases += [(B, S, S, H, K, D, dt, True, w) for B, S, H, K, D, w in CHUNKED_FLASH]
     check = Cases("flash_attention")
     for (B, Sq, Sk, H, K, D, dt, causal, window) in cases:
         q, k, v = inputs(B, Sq, Sk, H, K, D, dt)
@@ -1062,6 +1094,11 @@ def attention_f64(q, k, v, *, causal: bool, window: int | None):
 # recurrentgemma-2b's, and a window that bites; each in f32 and bf16.
 FLASH_GRAD_CASES = [(2, 77, 4, 2, 16, None), (8, 2048, 8, 4, 64, None),
                     (1, 2048, 10, 1, 256, 2048), (1, 1000, 10, 1, 256, 256)]
+# The attention calls of phase 7's chunked runs (CHUNKED_RUNS), (B, S, H, K,
+# D, window), causal: tiny's 8 rows of CHUNKED_SEQ in one microbatch and
+# recurrentgemma-2b's one row a microbatch (D = 256, K = 1, its window).
+CHUNKED_SEQ = 4096
+CHUNKED_FLASH = [(8, CHUNKED_SEQ, 8, 4, 64, None), (1, CHUNKED_SEQ, 10, 1, 256, 2048)]
 # The rule is timed at tiny's shape in f32 (tiny's own precision) and bf16
 # (recurrentgemma-2b's precision), and at recurrentgemma-2b's shape in bf16.
 FLASH_GRAD_TIMED = [(8, 2048, 8, 4, 64, None, torch.float32),
@@ -1128,25 +1165,132 @@ def check_flash_grad(gen, dev) -> list:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
                    for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
         g = torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
-        ms = time_ms(lambda: flash_ops.flash_vjp(g, q, k, v, causal=True, window=window),
-                     iters=5)
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-        mask = None
-        if window is not None and window < S:        # else the window keeps every causal pair
-            qpos = torch.arange(S, device=dev)[:, None]
-            kpos = torch.arange(S, device=dev)[None, :]
-            mask = (kpos <= qpos) & (qpos - kpos < window)
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
-        gt = g.transpose(1, 2).contiguous()
-        lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+        ms, lib_ms = grad_rivals_ms(g, q, k, v, window)
         bound_ms, bound_by = attention_grad_bound(B, S, H, K, D, window, dt)
         label = f"B={B} S={S} H={H} K={K} D={D} window={window} {str(dt)[6:]}"
         timings.append(dict(shape=f"{str(dt)[6:]} causal {label[:label.rindex(' ')]}", ms=ms,
                             library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                             forward_max_abs_err=check.errs[(S, D, dt)],
                             max_rel_err=max(r[1] for r in rel + rel32 if label in r[0])))
-        del out, qt, kt, vt
+    return timings
+
+
+def grad_rivals_ms(g, q, k, v, window) -> tuple[float, float]:
+    """Device ms of one call of the plain rule, flash_vjp, and of SDPA's
+    backward (the library's), on the same causal inputs, by CUDA events."""
+    S = q.shape[1]
+    ms = time_ms(lambda: flash_ops.flash_vjp(g, q, k, v, causal=True, window=window), iters=5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    mask = None
+    if window is not None and window < S:        # else the window keeps every causal pair
+        qpos = torch.arange(S, device=q.device)[:, None]
+        kpos = torch.arange(S, device=q.device)[None, :]
+        mask = (kpos <= qpos) & (qpos - kpos < window)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+    gt = g.transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+    return ms, lib_ms
+
+
+# The backward kernel against flash_bwd_ref on the same inputs, as max |err|
+# / max |ref| per gradient: in f32 both sum in f32 in other orders (TOL's
+# rtol, far above the sums' roundings); in bf16 each rounds its f32 gradient
+# once to bf16, so the two may part by one bf16 ulp, at most 2^-7 (0.78 %) of
+# the gradient's scale, and 1 % leaves room for the f32 sums' order.
+BWD_REL = {torch.float32: TOL[torch.float32]["rtol"], torch.bfloat16: 1e-2}
+# FLASH_GRAD_CASES (causal) and CHUNKED_FLASH, the main path's shapes (at
+# 4096 the window of 2048 masks: the window bounds of every pass run), plus
+# seamless-m4t-large-v2's cross-attention at prefill (not causal, Sq !=
+# Sk), llama3-smoke's head_dim 8 (run at 16), granite-8b's heads at D = 128
+# with a window, and D = 32 with a window and no causal mask, ragged against
+# the tiles: (B, Sq, Sk, H, K, D, causal, window).
+FLASH_BWD_CASES = ([(B, S, S, H, K, D, True, w)
+                    for B, S, H, K, D, w in FLASH_GRAD_CASES + CHUNKED_FLASH]
+                   + [(1, 340, 1024, 16, 16, 64, False, None), (2, 45, 45, 8, 2, 8, True, None),
+                      (1, 340, 340, 32, 8, 128, True, 256), (1, 200, 200, 4, 2, 32, False, 64)])
+# Timed beside flash_bwd_ref, flash_vjp, SDPA's backward and the bound: the
+# main path's shapes in their models' precisions (tiny f32, the kernels
+# line's record; recurrentgemma-2b bf16), then FLASH_GRAD_TIMED's.
+FLASH_BWD_MAIN = [CHUNKED_FLASH[0] + (torch.float32,), CHUNKED_FLASH[1] + (torch.bfloat16,)]
+
+
+def check_flash_bwd(gen, dev, rule: list) -> list:
+    """The backward kernel (the flash op's gradient under ``chunked``)
+    against flash_bwd_ref, its plain version, on the same inputs and the
+    forward kernel's output, at FLASH_BWD_CASES in f32 and bf16 (BWD_REL of
+    each gradient's scale); then the custom op under ``chunked`` on the
+    first case: one forward and one backward launch, gradients equal to the
+    kernel's. Times it at FLASH_BWD_MAIN and FLASH_GRAD_TIMED by CUDA
+    events beside flash_bwd_ref, the unchunked rule (flash_vjp), SDPA's
+    backward and the bound; at FLASH_GRAD_TIMED the last three are
+    ``rule``'s, check_flash_grad's at the same shapes."""
+    gen_b = torch.Generator(device=dev).manual_seed(3)   # leaves `gen`'s draws alone
+
+    def inputs(B, Sq, Sk, H, K, D, dt):
+        return [torch.randn(shape, generator=gen_b, device=dev).to(dt)
+                for shape in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D), (B, Sq, H, D))]
+
+    rel, errs = [], {}
+    for (B, Sq, Sk, H, K, D, causal, window) in FLASH_BWD_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, g = inputs(B, Sq, Sk, H, K, D, dt)
+            o = flash_attention_kernel(q, k, v, causal=causal, window=window)
+            out = flash_attention_bwd_kernel(g, q, k, v, o, causal=causal, window=window)
+            torch.cuda.synchronize()
+            ref = flash_bwd_ref(g, q, k, v, causal=causal, window=window)
+            seq = f"S={Sq}" if Sq == Sk else f"S={Sq}x{Sk}"
+            label = (f"B={B} {seq} H={H} K={K} D={D} {'causal' if causal else 'full'} "
+                     f"window={window} {str(dt)[6:]}")
+            for name, a, r in zip("qkv", out, ref):
+                if a.dtype != dt or a.shape != r.shape:
+                    fail(f"flash backward kernel: d{name} {a.dtype} {tuple(a.shape)} at {label}")
+                rel.append((f"d{name} {label}", rel_err(a, r.double()), BWD_REL[dt]))
+                errs[(B, Sq, Sk, H, D, dt)] = max(errs.get((B, Sq, Sk, H, D, dt), 0.0),
+                                                  (a.float() - r.float()).abs().max().item())
+            del q, k, v, g, o, out, ref
+    worst = max(rel, key=lambda r: r[1] / r[2])
+    log(f"[kernels] flash_attention backward kernel against flash_bwd_ref: {len(rel)} "
+        f"gradients, worst {worst[1]:.3e} of the gradient's scale at {worst[0]} (limit "
+        f"{worst[2]:g}; f32 {BWD_REL[torch.float32]:g}, bf16 {BWD_REL[torch.bfloat16]:g})")
+    if worst[1] > worst[2]:
+        fail(f"the flash backward kernel is off by {worst[1]:.3e} of the gradient's scale "
+             f"at {worst[0]}")
+
+    B, S, _, H, K, D, causal, window = FLASH_BWD_CASES[0]
+    q, k, v, g = inputs(B, S, S, H, K, D, torch.float32)
+    x = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_counts()
+    flash_ops.flash_attention(*x, causal=causal, window=window, chunked=True).backward(g)
+    if read_counts() != {**NO_LAUNCHES, "flash_attention": 1, "flash_attention_bwd": 1}:
+        fail(f"the flash op under chunked launched {read_counts()}, expected one forward "
+             "and one backward launch")
+    direct = flash_attention_bwd_kernel(
+        g, q, k, v, flash_attention_kernel(q, k, v, causal=causal, window=window),
+        causal=causal, window=window)
+    if not all(torch.equal(a.grad, b) for a, b in zip(x, direct)):
+        fail("the flash op's gradient under chunked differs from the backward kernel's")
+
+    timings = []
+    for (B, S, H, K, D, window, dt), r in zip(FLASH_BWD_MAIN + FLASH_GRAD_TIMED,
+                                              [None] * len(FLASH_BWD_MAIN) + rule):
+        q, k, v, g = inputs(B, S, S, H, K, D, dt)
+        o = flash_attention_kernel(q, k, v, causal=True, window=window)
+        ms = time_ms(lambda: flash_attention_bwd_kernel(g, q, k, v, o, causal=True,
+                                                        window=window), iters=10)
+        plain_ms = time_ms(lambda: flash_bwd_ref(g, q, k, v, causal=True, window=window),
+                           iters=3, warmup=1)
+        if r is None:                   # a main-path shape, which check_flash_grad skips
+            rule_ms, lib_ms = grad_rivals_ms(g, q, k, v, window)
+            r = dict(zip(("ms", "library_ms", "bound_ms", "bound_by"), (rule_ms, lib_ms)
+                         + attention_grad_bound(B, S, H, K, D, window, dt)))
+        timings.append(dict(
+            shape=f"{str(dt)[6:]} causal B={B} S={S} H={H} K={K} D={D}"
+                  + (f" w={window}" if window else ""),
+            ms=ms, plain_ms=plain_ms, rule_ms=r["ms"], library_ms=r["library_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            max_abs_err=errs[(B, S, S, H, D, dt)]))
+        del q, k, v, g, o
     return timings
 
 
@@ -1228,6 +1372,8 @@ def phase_kernels(dev, old: dict) -> dict:
     recs["ssd_grad"] = check_ssd_grad(gen, dev)
     at_phase(3, "kernels", "flash_attention gradient rule")
     recs["flash_grad"] = check_flash_grad(gen, dev)
+    at_phase(3, "kernels", "flash_attention backward kernel")
+    recs["flash_bwd"] = check_flash_bwd(gen, dev, recs["flash_grad"])
     at_phase(3, "kernels", "lru_scan gradient rule")
     recs["lru_grad"] = check_lru_grad(gen, dev)
     return recs
@@ -1718,6 +1864,108 @@ def phase_train(dev, arch: str) -> dict:
             "peak_gib": peak / 2**30}
 
 
+# Phase 7, chunked: the reference's chunked attention (ModelConfig.attn_chunked)
+# trains at full width on CHUNKED_SEQ tokens a row, with the flag on and off
+# from one seed, TRAIN's 6 steps each: (arch, global batch and microbatches,
+# the peak must fall).
+# tiny's flash rule holds its peak without the flag (8 x 8 x 4096^2 f32
+# scores, several at once); recurrentgemma-2b's 43.1 GiB of f32 state and
+# its 256,000-word logits hold it either way, so there the peak may rise by
+# no more than what the flag adds (chunked_slack). recurrentgemma-2b runs
+# D = 256, window 2048 and K = 1 at full width.
+CHUNKED_RUNS = (("tiny", dict(global_batch=8, microbatches=1), True),
+                ("recurrentgemma-2b", dict(global_batch=4, microbatches=4), False))
+# Every step's loss, flag on against off, relative: step 0 runs the same
+# kernels; later steps see gradients that differ by the backward kernel's
+# f32 sums against the plain rule's, which in f32 (tiny) moves the losses
+# far inside TOL's rtol, and in bf16 (recurrentgemma-2b) also by the one
+# bf16 rounding of dq, dk and dv, where MODEL_TOL's rtol holds.
+CHUNKED_LOSS_REL = {"float32": TOL[torch.float32]["rtol"], "bfloat16": MODEL_TOL["rtol"]}
+
+
+def chunked_run(dev, cfg, run: dict) -> dict:
+    """TRAIN's steps of ``cfg`` at CHUNKED_SEQ through train_loop, the
+    counts set to 0 just before and read just after: losses, ms/step (steps
+    after the first), peak GiB, launches."""
+    history, stamps = [], []
+
+    def on_metrics(step, m):
+        stamps.append(time.perf_counter())
+        history.append(m)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                        # count the main path's run only
+    result = train_loop(cfg, opt=OptConfig(lr=3e-4), log_every=1, on_metrics=on_metrics,
+                        device=dev, steps=TRAIN["steps"], seq_len=CHUNKED_SEQ,
+                        seed=TRAIN["seed"], **run)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    losses = [m["loss"] for m in history]
+    if result.status != "done" or len(losses) != TRAIN["steps"] or \
+            not all(math.isfinite(x) for x in losses):
+        fail(f"{cfg.name} attn_chunked={cfg.attn_chunked} training ended {result.status} "
+             f"at step {result.step}, losses {losses}")
+    expect = {k: n * TRAIN["steps"] for k, n in
+              launches_per_train_step(cfg, run["microbatches"]).items()}
+    if launches != expect:
+        fail(f"{cfg.name} attn_chunked={cfg.attn_chunked} launched {launches}, "
+             f"expected {expect}")
+    return {"losses": losses, "launches": launches,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "step_ms": 1e3 * statistics.mean(b - a for a, b in zip(stamps, stamps[1:])),
+            "card": nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")}
+
+
+def chunked_slack(cfg, run: dict) -> int:
+    """Bytes that attn_chunked may add to a step's peak where the flag takes
+    no S x S scores away: the output o that each chunked attention saves for
+    its backward (B S H D in the model's dtype, every attention of the pass
+    counted, as without remat), and the backward kernel's row statistics L
+    and Delta of one call (2 B H S f32), at the microbatch's rows."""
+    B = run["global_batch"] // run["microbatches"]
+    n = launches_per_train_step(cfg)["flash_attention_bwd"]
+    itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    return (n * B * CHUNKED_SEQ * cfg.num_heads * cfg.head_dim * itemsize
+            + 2 * B * cfg.num_heads * CHUNKED_SEQ * 4)
+
+
+def phase_train_chunked(dev) -> list:
+    """CHUNKED_RUNS, each with attn_chunked on, then off, from one seed:
+    every step's loss within CHUNKED_LOSS_REL, launches as
+    launches_per_train_step counts them (the backward kernel once per
+    attention per microbatch with the flag, none without), the peak lower
+    with the flag where CHUNKED_RUNS says so, elsewhere higher by no more
+    than chunked_slack; one line per arch. Returns the runs with the flag,
+    (name, cfg, {"launches"}), and their card readings."""
+    runs, cards = [], []
+    for arch, run, lower in CHUNKED_RUNS:
+        at_phase(7, "training, attn_chunked", arch)
+        base = configs.get(arch)
+        on, off = (chunked_run(dev, base.replace(attn_chunked=flag), run)
+                   for flag in (True, False))
+        worst = max(abs(a - b) / abs(b) for a, b in zip(on["losses"], off["losses"]))
+        tol = CHUNKED_LOSS_REL[base.dtype]
+        slack = 0.0 if lower else chunked_slack(base.replace(attn_chunked=True), run) / 2**30
+        log(f"[train] attn_chunked {arch} {run['global_batch']} x {CHUNKED_SEQ} in "
+            f"{run['microbatches']} mb, {TRAIN['steps']} steps, on | off: {on['step_ms']:.3f} | "
+            f"{off['step_ms']:.3f} ms/step, peak {on['peak_gib']:.3f} | {off['peak_gib']:.3f} "
+            f"GiB{f' (may rise {slack:.3f})' if slack else ''}, launches {counts_str(on['launches'])} | {counts_str(off['launches'])}; "
+            f"losses {[round(x, 6) for x in on['losses']]}, rel diff {worst:.1e} (limit "
+            f"{tol:g})")
+        if worst > tol:
+            fail(f"{arch}: losses with attn_chunked {on['losses']} against {off['losses']}")
+        if (lower and not on["peak_gib"] < off["peak_gib"]) or \
+                on["peak_gib"] > off["peak_gib"] + slack:
+            fail(f"{arch}: peak {on['peak_gib']:.3f} GiB with attn_chunked against "
+                 f"{off['peak_gib']:.3f} without" + (f" (slack {slack:.3f})" if slack else ""))
+        runs.append((f"{arch} training, attn_chunked, {CHUNKED_SEQ} tokens a row",
+                     base.replace(attn_chunked=True), on))
+        cards += [on["card"], off["card"]]
+    return runs, cards
+
+
 # Gradient rules, each timed on the device under a label for the profiled step.
 RULES = ((ssd_ops, "ssd_vjp", "ssd_rule"), (flash_ops, "flash_vjp", "flash_rule"),
          (lru_ops, "lru_scan_vjp", "lru_rule"))
@@ -1955,8 +2203,12 @@ def phase_runner(dev) -> dict:
 SHARDED_TRAIN = ("recurrentgemma-2b", "fsdp")
 SHARDED_SERVE = ("granite-8b", "tp2d")
 SHARDED_LOSS_REL = 1e-5
-DRYRUN_CELLS = (("llama3-405b", "train_4k", None), ("mixtral-8x22b", "decode_32k", "tp2d"),
-                ("recurrentgemma-2b", "long_500k", None))
+# (arch, shape, rules kind, chunked): the last is qwen2.5-14b's train_4k under
+# --chunked, the cell whose peak the flash rule set (PERF.md).
+DRYRUN_CELLS = (("llama3-405b", "train_4k", None, False),
+                ("mixtral-8x22b", "decode_32k", "tp2d", False),
+                ("recurrentgemma-2b", "long_500k", None, False),
+                ("qwen2.5-14b", "train_4k", None, True))
 
 
 def phase_sharded(dev, train: dict, serve: dict) -> list:
@@ -2041,8 +2293,8 @@ def phase_sharded(dev, train: dict, serve: dict) -> list:
     at_phase(9, "sharded", "dry-run")
     dist.destroy_process_group()          # the dry-run's group is a fake one
     cells, t = [], time.perf_counter()
-    for arch, shape, kind in DRYRUN_CELLS:
-        r = dryrun.run_cell(arch, shape, rules_kind=kind, verbose=False)
+    for arch, shape, kind, chunked in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape, rules_kind=kind, chunked=chunked, verbose=False)
         m = r["memory"]
         cells.append(f"{arch} {shape} {r['rules']} {m['total_gb']:.1f} GiB/dev "
                      f"{'fits' if m['fits'] else 'no fit'} {r['terms']['dominant']} "
@@ -2098,14 +2350,14 @@ def _measured(x):
 
 def record(name: str, source: str, replaces: str, rec: dict, paths: dict, **extra) -> dict:
     """One entry of the kernels line: ``launches`` sums the main paths' runs
-    (``paths``: {path: launches}), the numbers are ``rec``'s (phase 3);
-    ``timings`` in ``extra`` holds the other shapes phase 3 timed."""
+    (``paths``: {path: launches}), the numbers are ``rec``'s (phase 3); the
+    other shapes phase 3 timed are in the build record (``summary``)."""
     return _measured({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                       "launches": sum(paths.values()), "max_abs_err": rec["max_abs_err"],
                       "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                       "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                       "library_ms": rec["library_ms"], "shape": rec["shape"],
-                      "old_design_ms": rec["old_ms"], "launches_by_path": paths, **extra})
+                      "old_design_ms": rec.get("old_ms"), "launches_by_path": paths, **extra})
 
 
 def dynamic_smem() -> dict:
@@ -2117,8 +2369,10 @@ def dynamic_smem() -> dict:
     ssd.repro_ssd_bf16_smem_bytes.argtypes = [ctypes.c_int]
     ssd.repro_ssd_bf16_smem_bytes.restype = ctypes.c_longlong
     ssd.repro_ssd_bf16_state_smem_bytes.restype = ctypes.c_longlong
+    bwd = flash_module._bwd_library().repro_flash_attention_bwd_smem_bytes
     return {"flash_fwd_tc_kernel<128,128>": flash(128, 1),
             "flash_fwd_tc_kernel<256,256>": flash(256, 1),
+            "flash_bwd_dkdv_kernel<64>": bwd(64), "flash_bwd_dkdv_kernel<256>": bwd(256),
             "ssd_chunk_tc_kernel": ssd.repro_ssd_bf16_smem_bytes(256),
             "ssd_state_tc_kernel": ssd.repro_ssd_bf16_state_smem_bytes()}
 
@@ -2128,14 +2382,18 @@ def _old(ms) -> str:
     return "" if ms is None else f" (old {ms:.4f})"
 
 
-def summary(built: dict, recs: dict) -> None:
+def summary(built: dict, recs: dict, timings: dict) -> None:
     """The build and the kernels in brief, just before the kernels line (the
-    serving, training and runner numbers are on their phases' lines)."""
+    serving, training and runner numbers are on their phases' lines); the
+    registers of every kernel and ``timings`` (each kernel's other timed
+    shapes and its gradient rule's) go to the build record."""
     log(f"[summary] card {nvidia_smi('name,power.limit')}; build {built['seconds']:.3f} s")
     smem = dynamic_smem()
     detail = build.BUILD_DIR / "chip_smoke_build.json"
-    detail.write_text(json.dumps({"info": built["info"], "dynamic_smem": smem}, indent=1))
-    log(f"[summary] per library (each kernel in {os.path.relpath(detail, ROOT)}): kernels, "
+    detail.write_text(json.dumps({"info": built["info"], "dynamic_smem": smem,
+                                  "timings": timings}, indent=1))
+    log(f"[summary] per library (each kernel, and the timings not in the kernels line, in "
+        f"{os.path.relpath(detail, ROOT)}): kernels, "
         "registers, spill bytes, HMMA, LDGSTS: " + "; ".join(
             f"{name} {len(k)}, {min(i['registers'] or 0 for i in k.values())}-"
             f"{max(i['registers'] or 0 for i in k.values())}, "
@@ -2165,6 +2423,10 @@ def summary(built: dict, recs: dict) -> None:
         f"{t['shape'].replace(' window=None', '')}: {t['ms']:.4f} | SDPA backward "
         f"{t['library_ms']:.4f} | {t['bound_ms']:.4f} {t['bound_by']}"
         for t in recs["flash_grad"]))
+    rules.append("flash_attention_bwd kernel (attn_chunked) " + ", ".join(
+        f"{t['shape']}: {t['ms']:.4f} (flash_bwd_ref {t['plain_ms']:.4f}, flash_vjp "
+        f"{t['rule_ms']:.4f}) | SDPA backward {t['library_ms']:.4f} | {t['bound_ms']:.4f} "
+        f"{t['bound_by']}" for t in recs["flash_bwd"]))
     rules += [f"lru_scan (reversed scan) {t['shape']}: {t['ms']:.4f} (autograd through the "
               f"plain scan {t['plain_ms']:.4f}) | none | {t['bound_ms']:.4f} {t['bound_by']}"
               for t in recs["lru_grad"]]
@@ -2209,9 +2471,10 @@ def main() -> int:
                                                          max_len=1024, prompt_range=(100, 340))}
     log(f"[serve] card after each run: {card_range([r['card'] for r in serves.values()])}")
     trains = [train_and_profile(dev, arch) for arch in TRAIN_RUNS]
+    chunked, chunked_cards = phase_train_chunked(dev)
     runner = phase_runner(dev)
     log("[train] card after each run: "
-        f"{card_range([t['card'] for t in trains + [runner]])}")
+        f"{card_range([t['card'] for t in trains + [runner]] + chunked_cards)}")
     sharded = phase_sharded(dev, next(t for t in trains if t["arch"] == SHARDED_TRAIN[0]),
                             serves[SHARDED_SERVE[0]])
     at_phase(10, "summary")
@@ -2219,11 +2482,15 @@ def main() -> int:
     def paths(kernel):
         """{path: launches} for each main path whose model has a layer of the
         kernel's kind: the launches of every such run, zeros included (the
-        mamba2 prefill's plain scan launches no SSD kernel)."""
+        mamba2 prefill's plain scan launches no SSD kernel); the backward
+        kernel's, the runs with attn_chunked."""
+        if kernel == "flash_attention_bwd":
+            return {name: r["launches"][kernel] for name, cfg, r in chunked}
         kinds = {"flash_attention": set(ATTENTION_KINDS), "lru_scan": {"rglru"},
                  "ssd_scan": {"ssm"}}[kernel]
         runs = [(f"{arch} serving", r["cfg"], r) for arch, r in serves.items()]
         runs += [(f"{t['arch']} training", t["cfg"], t) for t in trains]
+        runs += chunked
         runs.append(("tiny via ClusterRunner (4 jobs)", configs.get("tiny"), runner))
         runs += sharded
         return {name: r["launches"][kernel] for name, cfg, r in runs
@@ -2232,18 +2499,27 @@ def main() -> int:
     kernels = [
         record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:79", recs["flash"][FLASH_MAIN],
-               paths("flash_attention"), gradient_rule=recs["flash_grad"],
-               timings=[t for k, t in recs["flash"].items() if k != FLASH_MAIN]),
+               paths("flash_attention")),
+        record("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+               "none (the gradient of src/repro/kernels/flash_attention/ref.py:55 "
+               "attention_chunked, under attn_chunked)", recs["flash_bwd"][0],
+               paths("flash_attention_bwd")),
         record("lru_scan", "src/repro_torch/csrc/lru_scan.cu",
-               "src/repro/kernels/rglru/kernel.py:49", recs["lru"][2500], paths("lru_scan"),
-               timings=[t for S, t in recs["lru"].items() if S != 2500],
-               gradient_rule=recs["lru_grad"]),
+               "src/repro/kernels/rglru/kernel.py:49", recs["lru"][2500], paths("lru_scan")),
         record("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
                "src/repro/kernels/ssd/kernel.py:75", recs["ssd"], paths("ssd_scan"),
-               flops=recs["ssd"]["flops"], bytes=recs["ssd"]["bytes"],
-               gradient_rule=recs["ssd_grad"]),
+               flops=recs["ssd"]["flops"], bytes=recs["ssd"]["bytes"]),
     ]
-    summary(built, recs)
+    # each kernel's other timed shapes and its gradient rule's timings: in
+    # the build record beside the registers, out of the kernels line
+    detail = {"flash_attention": {"timings": [t for k, t in recs["flash"].items()
+                                              if k != FLASH_MAIN],
+                                  "gradient_rule": recs["flash_grad"]},
+              "flash_attention_bwd": {"timings": recs["flash_bwd"][1:]},
+              "lru_scan": {"timings": [t for S, t in recs["lru"].items() if S != 2500],
+                           "gradient_rule": recs["lru_grad"]},
+              "ssd_scan": {"gradient_rule": recs["ssd_grad"]}}
+    summary(built, recs, significant(_measured(detail)))
     log(f"[time] total {time.perf_counter() - T_START:.1f} s")
     log(nvidia_smi("name,power.limit"))
     log(json.dumps({"kernels": significant(kernels)}))

@@ -32,6 +32,10 @@ class ModelConfig:
     attention: str = "full"         # full | swa | none
     window: int = 4096              # sliding window (attention == "swa" / local)
     qkv_bias: bool = False
+    attn_chunked: bool = False      # blockwise online-softmax (XLA flash):
+                                    # O(S·D) peak bytes instead of O(S²)
+    attn_q_block: int = 1024        # chunked-attention tile sizes; carry
+    attn_k_block: int = 1024        # traffic ∝ S/attn_k_block per q tile
 
     # MoE
     num_experts: int = 0

@@ -1,11 +1,16 @@
-"""Binding of the hand-written CUDA flash-attention kernel
-(``src/repro_torch/csrc/flash_attention.cu``), which replaces the reference's
-Pallas kernel ``kernels/flash_attention/kernel.py::flash_attention_kernel``.
+"""Bindings of the hand-written CUDA flash-attention kernels:
+``src/repro_torch/csrc/flash_attention.cu``, the forward, which replaces the
+reference's Pallas kernel
+``kernels/flash_attention/kernel.py::flash_attention_kernel``; and
+``src/repro_torch/csrc/flash_attention_bwd.cu``, its gradient (dQ, dK, dV
+by recomputing P tile by tile), the card's form of the gradient of the
+reference's chunked attention (``attn_chunked``).
 
-The library is built with ``nvcc`` at the first launch (see
+Each library is built with ``nvcc`` at its first launch (see
 :mod:`repro_torch.kernels.build`); importing this module builds nothing, so
-the CPU tests import it freely. :func:`flash_attention_kernel` takes CUDA
-tensors only: it launches the kernel or raises, and never falls back.
+the CPU tests import it freely. :func:`flash_attention_kernel` and
+:func:`flash_attention_bwd_kernel` take CUDA tensors only: each launches
+its kernel or raises, and never falls back.
 """
 
 from __future__ import annotations
@@ -18,14 +23,17 @@ import torch
 
 from repro_torch.kernels.build import build_library
 
-__all__ = ["flash_attention_kernel", "SOURCE", "HEAD_DIMS"]
+__all__ = ["flash_attention_kernel", "flash_attention_bwd_kernel", "SOURCE", "SOURCE_BWD",
+           "HEAD_DIMS"]
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "flash_attention.cu"
+SOURCE_BWD = SOURCE.with_name("flash_attention_bwd.cu")
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)       # 8 runs at width 16, zero-filled
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
-_lock = threading.Lock()     # guards _lib and the launch count: threads launch too
+_bwd_lib = None
+_lock = threading.Lock()     # guards the libraries and the launch counts: threads launch too
 
 
 def _library() -> ctypes.CDLL:
@@ -40,6 +48,22 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    global _bwd_lib
+    with _lock:
+        if _bwd_lib is not None:
+            return _bwd_lib
+        lib = build_library(SOURCE_BWD)
+        fn = lib.repro_flash_attention_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.repro_flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int]
+        lib.repro_flash_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,3 +115,43 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention_kernel.launches = 0
+
+
+def flash_attention_bwd_kernel(grad_o: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, o: torch.Tensor, *, causal: bool = True,
+                               window: int | None = None):
+    """The gradient of :func:`flash_attention_kernel`'s attention at (q, k,
+    v), whose output was ``o``, with cotangent ``grad_o``: (dq, dk, dv) in
+    the inputs' dtype, the same masks and GQA, scale D^-0.5. q, o, grad_o:
+    (B, Sq, H, D); k, v: (B, Sk, K, D); contiguous CUDA tensors of one dtype
+    (float32 or bfloat16). Three kernels a call (the rows' log-sum-exp and
+    rowsum(dO o O), then dK and dV, then dQ); ``launches`` counts calls."""
+    _check(q, k, v, window)
+    for name, t in (("grad_o", grad_o), ("o", o)):
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"{name} must match q: {t.device} {t.dtype} {tuple(t.shape)} "
+                             f"against {q.device} {q.dtype} {tuple(q.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if H > 65535 or B > 65535:
+        raise ValueError(f"H={H} and B={B} must be at most 65535 (the grid's y and z)")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fn = _bwd_library().repro_flash_attention_bwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(grad_o.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), B, Sq, Sk, H, K, D, _DTYPES[q.dtype], int(causal),
+                 0 if window is None else int(window), D ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
+    with _lock:
+        flash_attention_bwd_kernel.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_kernel.launches = 0

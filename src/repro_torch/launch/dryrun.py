@@ -32,6 +32,7 @@ depth once instead.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh single
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh single --chunked
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh multi   # 512 ranks
 """
 
@@ -141,11 +142,13 @@ def _step(cfg, shape, mesh, rules, *, microbatches, bf16_params, bf16_moments):
 
 
 def measure(cfg, shape, mesh, rules, *, microbatches: int = 1, bf16_params: bool = False,
-            bf16_moments: bool = False) -> dict:
+            bf16_moments: bool = False, peak_top: int = 0) -> dict:
     """Run the cell's step once on meta inputs under :class:`CostMode`.
     Returns per-device ``flops``, ``bytes``, ``wire_bytes``,
     ``collectives`` ({kind: {count, wire_bytes}}), ``arg_bytes`` and
-    ``temp_bytes`` (the peak of the storages the step held)."""
+    ``temp_bytes`` (the peak of the storages the step held); with
+    ``peak_top`` > 0 also ``at_peak``, what holds that peak
+    (:class:`CostMode`)."""
     mdt = torch.bfloat16 if bf16_moments else torch.float32
     inputs = input_specs(cfg, shape, mesh, rules, microbatches=microbatches,
                          moments_dtype=mdt)
@@ -159,7 +162,7 @@ def measure(cfg, shape, mesh, rules, *, microbatches: int = 1, bf16_params: bool
         fn(*inputs)
     inputs = input_specs(cfg, shape, mesh, rules, microbatches=microbatches,
                          moments_dtype=mdt)
-    mode = CostMode()
+    mode = CostMode(peak_top)
     with mode:
         out = fn(*inputs)
     del out
@@ -172,7 +175,7 @@ def measure(cfg, shape, mesh, rules, *, microbatches: int = 1, bf16_params: bool
     return {"flops": float(mode.flops), "bytes": float(mode.bytes),
             "wire_bytes": float(sum(c.wire_bytes for c in colls)), "collectives": by_kind,
             "arg_bytes": float(argument_bytes(inputs, shape, mesh, rules, microbatches)),
-            "temp_bytes": float(mode.peak_bytes)}
+            "temp_bytes": float(mode.peak_bytes), "at_peak": mode.at_peak}
 
 
 def _depth_pair(cfg) -> tuple:
@@ -194,15 +197,26 @@ def _with_depth(cfg, L: int):
 _LINEAR = ("flops", "bytes", "wire_bytes", "temp_bytes")
 
 
+def _chunked_cfg(cfg, chunked: bool, q_block: int, k_block: int):
+    """``cfg`` with the reference's chunked attention on (``--chunked``)."""
+    if not chunked:
+        return cfg
+    return cfg.replace(attn_chunked=True, attn_q_block=q_block, attn_k_block=k_block)
+
+
 def extrapolated_costs(arch: str, shape, mesh, rules, *, microbatches: int = 1,
-                       bf16_params: bool = False, bf16_moments: bool = False) -> dict:
+                       chunked: bool = False, bf16_params: bool = False,
+                       bf16_moments: bool = False, q_block: int = 1024,
+                       k_block: int = 1024, peak_top: int = 0) -> dict:
     """Per-device costs extrapolated to full depth from two reduced depths
     (FLOPs, bytes, wire bytes, temporary bytes, each collective kind); the
-    argument bytes are the full-depth inputs' own."""
-    cfg = configs.get(arch)
+    argument bytes are the full-depth inputs' own; ``at_peak`` is what
+    holds the first reduced depth's peak (``peak_top``, :func:`measure`)."""
+    cfg = _chunked_cfg(configs.get(arch), chunked, q_block, k_block)
     L1, L2 = _depth_pair(cfg)
     kw = dict(microbatches=microbatches, bf16_params=bf16_params, bf16_moments=bf16_moments)
-    vals = {L: measure(_with_depth(cfg, L), shape, mesh, rules, **kw) for L in (L1, L2)}
+    vals = {L: measure(_with_depth(cfg, L), shape, mesh, rules, **kw,
+                       peak_top=peak_top if L == L1 else 0) for L in (L1, L2)}
     L = cfg.num_layers
 
     def line(a: float, b: float) -> float:
@@ -224,6 +238,7 @@ def extrapolated_costs(arch: str, shape, mesh, rules, *, microbatches: int = 1,
     mdt = torch.bfloat16 if bf16_moments else torch.float32
     full = input_specs(cfg, shape, mesh, rules, microbatches=microbatches, moments_dtype=mdt)
     out["arg_bytes"] = float(argument_bytes(full, shape, mesh, rules, microbatches))
+    out["at_peak"] = vals[L1]["at_peak"]
     return out
 
 
@@ -239,11 +254,16 @@ def _rules_for(arch: str, multi_pod: bool, fsdp, rules_kind):
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              rules_name: str | None = None, out_dir: str | None = None,
              microbatches: int = 1, fsdp: bool | None = None, rules_kind: str | None = None,
-             bf16_params: bool = False, bf16_moments: bool = False,
-             extrapolate: bool = True, verbose: bool = True) -> dict:
+             chunked: bool = False, bf16_params: bool = False, bf16_moments: bool = False,
+             q_block: int = 1024, k_block: int = 1024, extrapolate: bool = True,
+             verbose: bool = True, peak_top: int = 0) -> dict:
     """One cell on the production mesh: its report as a dict (with
-    ``skipped`` set when ``cell_supported`` refuses the cell)."""
-    cfg = configs.get(arch)
+    ``skipped`` set when ``cell_supported`` refuses the cell). ``chunked``
+    turns on the reference's chunked attention (``attn_chunked``, blocks
+    ``q_block`` x ``k_block``): the flash gradient is then the backward op,
+    which holds no (S, S) scores. ``peak_top`` > 0 prints the largest
+    storages live at the peak of the measured (first reduced) depth."""
+    cfg = _chunked_cfg(configs.get(arch), chunked, q_block, k_block)
     shape = configs.shape_for(shape_name)
     ok, why = configs.cell_supported(cfg, shape)
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
@@ -260,6 +280,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     rules, base = _rules_for(arch, multi_pod, fsdp, rules_kind)
     if rules_name is None:
         rules_name = base + ("_mp" if multi_pod else "")
+        if chunked:
+            rules_name += "_chunked"
+            if (q_block, k_block) != (1024, 1024):
+                rules_name += f"_qb{q_block}kb{k_block}"
         if bf16_params:
             rules_name += "_bf16p"
         if bf16_moments:
@@ -267,10 +291,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         if microbatches > 1:
             rules_name += f"_mb{microbatches}"
     mesh = make_production_mesh(multi_pod=multi_pod)
-    kw = dict(microbatches=microbatches, bf16_params=bf16_params, bf16_moments=bf16_moments)
+    kw = dict(microbatches=microbatches, bf16_params=bf16_params, bf16_moments=bf16_moments,
+              peak_top=peak_top)
     t0 = time.perf_counter()
     if extrapolate:
-        cost = extrapolated_costs(arch, shape, mesh, rules, **kw)
+        cost = extrapolated_costs(arch, shape, mesh, rules, chunked=chunked, q_block=q_block,
+                                  k_block=k_block, **kw)
     else:
         cost = measure(cfg, shape, mesh, rules, **kw)
     seconds = time.perf_counter() - t0
@@ -288,6 +314,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"memory={t['memory_s'] * 1e3:.2f}ms collective={t['collective_s'] * 1e3:.2f}ms "
               f"→ {t['dominant']}-bound; useful_ratio={report.useful_ratio:.3f} "
               f"roofline_frac={report.roofline_fraction:.3f}")
+        if cost["at_peak"]:
+            op, nbytes, live = cost["at_peak"]
+            print(f"      peak: {nbytes / 2**30:.2f}GiB at {op}, held by")
+            for n, made in live:
+                print(f"        {n / 2**30:8.2f}GiB  {made}")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, f"{arch}__{shape_name}__{mesh_name}__{rules_name}.json")
@@ -306,10 +337,22 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single")
     ap.add_argument("--rules", choices=["auto", "baseline", "fsdp", "zero", "tp2d"],
                     default="auto")
+    ap.add_argument("--chunked", action="store_true",
+                    help="the reference's chunked attention (attn_chunked): the flash "
+                         "gradient by the backward op, no (S, S) scores")
     ap.add_argument("--bf16-params", action="store_true",
                     help="cast f32 master params to bf16 once per step")
     ap.add_argument("--bf16-moments", action="store_true",
                     help="Adam mu/nu stored in bf16 (8 B/param state)")
+    ap.add_argument("--q-block", type=int, default=1024,
+                    help="--chunked's q block (the reference's flag; it names the rules, "
+                         "and the port's numbers do not depend on it: the dry-run's fake "
+                         "ops and the card's backward kernel take no blocks)")
+    ap.add_argument("--k-block", type=int, default=1024, help="--chunked's k block (as "
+                    "--q-block)")
+    ap.add_argument("--peak-top", type=int, default=0, metavar="N",
+                    help="print the N largest storages live at each cell's peak, with the "
+                         "op that made each (at the first reduced depth)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--all", action="store_true", help="run every (arch × shape) cell")
     ap.add_argument("--no-extrapolate", action="store_true",
@@ -331,8 +374,10 @@ def main(argv=None) -> int:
                 run_cell(arch, shape, multi_pod=multi, out_dir=args.out,
                          microbatches=args.microbatches, fsdp=fsdp,
                          rules_kind=args.rules if args.rules in ("zero", "tp2d") else None,
-                         bf16_params=args.bf16_params, bf16_moments=args.bf16_moments,
-                         extrapolate=not args.no_extrapolate)
+                         chunked=args.chunked, bf16_params=args.bf16_params,
+                         bf16_moments=args.bf16_moments, q_block=args.q_block,
+                         k_block=args.k_block, extrapolate=not args.no_extrapolate,
+                         peak_top=args.peak_top)
             except Exception as exc:  # noqa: BLE001 — a cell's failure is reported, then fails the run
                 failures.append((arch, shape, multi, repr(exc)))
                 print(f"FAIL  {arch} × {shape} multi={multi}: {exc}")

@@ -73,7 +73,8 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, causal: bool = True,
     sin, cos = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
-    o = flash_attention(q, k, v, causal=causal, window=window)
+    o = flash_attention(q, k, v, causal=causal, window=window, chunked=cfg.attn_chunked,
+                        q_block=cfg.attn_q_block, k_block=cfg.attn_k_block)
     return _proj_out(o, p["wo"]), (k, v)
 
 

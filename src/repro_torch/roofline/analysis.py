@@ -91,9 +91,13 @@ def _group_size(args) -> int:
 class CostMode(CommDebugMode):
     """``CommDebugMode`` that also counts, per device, the FLOPs, bytes and
     collectives of the local ops DTensor runs, and the peak of the
-    storages they allocate (module docstring)."""
+    storages they allocate (module docstring). With ``peak_top`` > 0 it
+    also keeps what holds the peak: ``at_peak`` is (the op at which the
+    peak rose last, the peak's bytes, [(bytes, (op, shape, dtype))] of the
+    ``peak_top`` largest storages live then, each with the op that made
+    it)."""
 
-    def __init__(self):
+    def __init__(self, peak_top: int = 0):
         super().__init__()
         self.flops = 0
         self.bytes = 0
@@ -101,8 +105,13 @@ class CostMode(CommDebugMode):
         self._live: dict[int, int] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.peak_top = peak_top
+        self.at_peak: tuple | None = None
+        self._op = ""
+        self._made: dict[int, tuple] = {}                # storage -> (op, shape, dtype)
 
     def _track(self, out) -> None:
+        before = self.peak_bytes
         for t in tree_leaves(out):
             if not isinstance(t, torch.Tensor) or isinstance(t, DTensor):
                 continue
@@ -115,12 +124,21 @@ class CostMode(CommDebugMode):
             self.live_bytes += n
             self.peak_bytes = max(self.peak_bytes, self.live_bytes)
             weakref.finalize(st, self._free, key)
+            if self.peak_top:
+                self._made[key] = (self._op, tuple(t.shape), str(t.dtype)[6:])
+        if self.peak_top and self.peak_bytes > before:
+            live = sorted(self._live.items(), key=lambda kv: -kv[1])[:self.peak_top]
+            self.at_peak = (self._op, self.peak_bytes,
+                            [(n, self._made.get(key)) for key, n in live])
 
     def _free(self, key: int) -> None:
         self.live_bytes -= self._live.pop(key, 0)
+        self._made.pop(key, None)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.peak_top:
+            self._op = getattr(func, "_overloadpacket", func).__name__
         leaves = [a for a in tree_leaves((args, kwargs)) if isinstance(a, torch.Tensor)]
         if any(t is DTensor or issubclass(t, DTensor) for t in types) or \
                 isinstance(func, torch._ops.HigherOrderOperator):

@@ -24,13 +24,20 @@ from repro_torch.train.optimizer import tree_leaves
 
 WORLD = 4
 B, S, CKPT_STEPS = 4, 16, 2
-TRAIN_GROUPS = {"tiny": [("tiny", "baseline"), ("tiny", "fsdp"), ("tiny", "zero")],
+# "tiny+chunked": tiny-smoke with the reference's chunked attention
+# (attn_chunked, blocks of 8 over S = 16): the flash gradient by the backward
+# op on each rank's shards
+TRAIN_GROUPS = {"tiny": [("tiny", "baseline"), ("tiny", "fsdp"), ("tiny", "zero"),
+                         ("tiny+chunked", "fsdp")],
                 "others": [("recurrentgemma-2b", "baseline"), ("mamba2-130m", "fsdp"),
                            ("moonshot-v1-16b-a3b", "baseline")]}
 TRAIN_CASES = [c for cases in TRAIN_GROUPS.values() for c in cases]
 
 
 def smoke(arch):
+    if arch.endswith("+chunked"):
+        return smoke(arch[:-len("+chunked")]).replace(attn_chunked=True, attn_q_block=8,
+                                                      attn_k_block=8)
     return configs.get_smoke(arch).replace(dtype="float32")
 
 

@@ -186,3 +186,54 @@ def test_collectives_are_traced_with_ring_factors(fake4):
     terms = analysis.roofline_terms(HW["peak_flops_bf16"], HW["hbm_bw"], 2 * HW["link_bw"])
     assert (terms["compute_s"], terms["memory_s"], terms["collective_s"]) == (1.0, 1.0, 2.0)
     assert terms["dominant"] == "collective"
+
+
+def test_chunked_drops_the_scores_and_counts_the_backward_op(pod):
+    """tiny x train_4k at depth 1 on 16 x 16 (16 rows of 4096 a card; 8 q
+    heads do not split 16 ways, so every card holds all 8), with a 1,024-word
+    vocabulary so that the loss's f32 logits (16 x 4096 x V) do not set the
+    peak: under --chunked the flash gradient is the backward op, whose fake
+    implementation holds no (S, S) scores, so the peak of live storages
+    falls by at least one layer's local B x H x S x S f32 scores; the
+    backward op's FLOPs are 2.5x the forward op's; a cell's rules carry the
+    reference's ``_chunked`` suffix."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    shape = tconfigs.shape_for("train_4k")
+    cfg = dryrun._with_depth(tconfigs.get("tiny").replace(vocab_size=1024), 1)
+    rules = shd.make_rules(multi_pod=False)
+    peak = {flag: dryrun.measure(cfg.replace(attn_chunked=flag), shape, pod, rules)["temp_bytes"]
+            for flag in (False, True)}
+    B, S, H = shape.global_batch // 16, shape.seq_len, cfg.num_heads
+    assert peak[False] - peak[True] >= B * H * S * S * 4
+    q = torch.empty((B, S, H, cfg.head_dim), device="meta")
+    kv = torch.empty((B, S, cfg.num_kv_heads, cfg.head_dim), device="meta")
+    with FlopCounterMode(display=False) as fwd:
+        o = flash_ops._flash_op(q, kv, kv, True, 0, True, 1024, 1024)
+    with FlopCounterMode(display=False) as bwd:
+        flash_ops._flash_bwd_op(o, q, kv, kv, o, True, 0, 1024, 1024)
+    assert fwd.get_total_flops() > 0
+    assert bwd.get_total_flops() == 2.5 * fwd.get_total_flops()
+    out = dryrun.run_cell("mamba2-130m", "long_500k", chunked=True, verbose=False)
+    assert out["rules"] == "baseline_chunked"
+
+
+def test_cost_mode_names_what_holds_the_peak():
+    """With ``peak_top`` the mode keeps the op at which the peak rose last
+    and the largest storages live then, each with the op that made it; a
+    storage freed before the peak is not among them."""
+    mode = analysis.CostMode(peak_top=2)
+    with mode:
+        a = torch.empty((1024,), device="meta")
+        gone = torch.empty((3000,), device="meta", dtype=torch.bfloat16)
+        del gone
+        b = torch.zeros((4096,), device="meta")
+        c = torch.empty((8,), device="meta")
+    op, nbytes, live = mode.at_peak
+    assert nbytes == mode.peak_bytes == 4 * (1024 + 4096 + 8)
+    assert op == "empty"
+    assert live == [(4 * 4096, ("zeros", (4096,), "float32")),
+                    (4 * 1024, ("empty", (1024,), "float32"))]
+    assert analysis.CostMode().at_peak is None
+    del a, b, c
