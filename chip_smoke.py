@@ -35,7 +35,8 @@ nothing is caught and carried on past:
                 version, the matching PyTorch library call where there is
                 one and its roofline bound, and with --old-src the other
                 design, in turns (old, new, new, old); the RG-LRU scan by
-                its kernels' device time (torch.profiler), back to back and
+                its kernels' device time (torch.profiler; a session without
+                them is taken once more, and fails the second time), back to back and
                 with the L2 cache flushed (by a read) before each call, and
                 by CUDA events as the others (the host's enqueue included);
                 holds the SSD kernel's gradient rule (autograd through its
@@ -53,10 +54,12 @@ nothing is caught and carried on past:
                 version, flash_bwd_ref, in f32 and bf16 over each gradient's
                 scale (BWD_REL), at the rule's shapes, phase 7's chunked
                 shapes (CHUNKED_FLASH, 4096 a row; the forward kernel is held
-                there too), seamless's cross-attention (not causal, Sq != Sk)
-                and head_dim 8, checks the op under chunked launches it once,
-                and times it there beside flash_bwd_ref, flash_vjp, SDPA's
-                backward and its bound;
+                there too), seamless's cross-attention (not causal, Sq != Sk),
+                head_dim 8 and granite-8b's D = 128 (its dK/dV pass split
+                over the q heads and not), checks the op under chunked
+                launches it once, and times it there beside flash_bwd_ref,
+                flash_vjp, SDPA's backward, its bound and, with --old-src,
+                the other design;
   4. model    — MODEL_CHECKS (granite-, recurrentgemma-, mamba2-, qwen2.5-,
                 mistral-nemo- with head_dim 32, llama3-, mixtral-, moonshot-,
                 internvl2- and seamless-smoke) in float32 on the card against
@@ -468,15 +471,23 @@ def _demangle(name: str) -> str:
     """'_ZN..19flash_fwd_tc_kernelILi128EEEv..' -> 'flash_fwd_tc_kernel<128>':
     the length-prefixed identifier that ends in _kernel, and its template
     arguments (types and integers)."""
-    for m in re.finditer(r"\d+", name):    # a hash's digits may run into the length
-        idents = (name[m.end():m.end() + int(m.group()[k:])] for k in range(len(m.group())))
-        ident = next((i for i in idents if i.endswith("_kernel")), "")
-        if re.fullmatch(r"[A-Za-z_]\w*_kernel", ident):
-            targs = re.match(r"I((?:13__nv_bfloat16|f|Li\d+E)+)E", name[m.end() + len(ident):])
-            labels = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a[2:-1]) for a in
-                      re.findall(r"13__nv_bfloat16|f|Li\d+E", targs.group(1))] if targs else []
-            return ident + (f"<{','.join(labels)}>" if labels else "")
-    return name[:60]
+    # a hash's digits may run into the length, and a digit run of the hash
+    # may read as the length of a longer name: the last start that reads as
+    # an identifier ending in _kernel is the name's own
+    found = None
+    for m in re.finditer(r"\d+", name):
+        for k in range(len(m.group())):
+            start = m.end()
+            ident = name[start:start + int(m.group()[k:])]
+            if re.fullmatch(r"[A-Za-z_]\w*_kernel", ident):
+                found = (start, ident)
+    if found is None:
+        return name[:60]
+    start, ident = found
+    targs = re.match(r"I((?:13__nv_bfloat16|f|Li\d+E)+)E", name[start + len(ident):])
+    labels = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a[2:-1]) for a in
+              re.findall(r"13__nv_bfloat16|f|Li\d+E", targs.group(1))] if targs else []
+    return ident + (f"<{','.join(labels)}>" if labels else "")
 
 
 def ptxas_info(log_path: Path) -> dict:
@@ -580,6 +591,28 @@ def _old_flash(lib):
     return run
 
 
+def _old_flash_bwd(lib):
+    """The old design's backward kernel through the same C interface
+    (``repro_flash_attention_bwd``; lse and delta as (B, H, Sq) scratch)."""
+    fn = lib.repro_flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(g, q, k, v, o, window):
+        B, Sq, H, D = q.shape
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        lse, delta = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+                      for _ in range(2))
+        err = fn(g.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 B, Sq, k.shape[1], H, k.shape[2], D, int(q.dtype == torch.bfloat16), 1,
+                 window or 0, D ** -0.5, torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"the old design's flash backward kernel failed: CUDA error {err}")
+        return dq, dk, dv
+    return run
+
+
 def _old_ssd(lib):
     """The old design's two-pass SSD kernel, bf16, through its C interface
     (``repro_ssd_fwd`` with an ``is_bf16`` argument)."""
@@ -663,12 +696,14 @@ SEAMLESS_INTERNVL_FLASH = [((1, 1024, 1024, 16, 16, 64), (False, None)),
 # window): granite-8b's prefill (the first: the kernels line's main shape)
 # and its S=2048, recurrentgemma-2b's local attention, moonshot's G=1, then
 # seamless-m4t-large-v2's encoder, cross-attention at prefill and at
-# decode, and internvl2-26b's longest prefill.
+# decode, internvl2-26b's longest prefill, and phase 7's chunked runs at
+# 4096 a row (CHUNKED_FLASH).
 FLASH_TIMED = [(1, 340, 340, 32, 8, 128, True, None), (1, 2048, 2048, 32, 8, 128, True, None),
                (1, 340, 340, 10, 1, 256, True, 2048), (1, 2500, 2500, 10, 1, 256, True, 2048),
                (1, 340, 340, 16, 16, 128, True, None),
                (1, 1024, 1024, 16, 16, 64, False, None), (1, 340, 1024, 16, 16, 64, False, None),
-               (4, 1, 1024, 16, 16, 64, False, None), (1, 596, 596, 48, 8, 128, True, None)]
+               (4, 1, 1024, 16, 16, 64, False, None), (1, 596, 596, 48, 8, 128, True, None),
+               (8, 4096, 4096, 8, 4, 64, True, None), (1, 4096, 4096, 10, 1, 256, True, 2048)]
 FLASH_MAIN = (1, 340, 340, 32, 128, True)
 
 
@@ -843,16 +878,25 @@ def scan_device_ms(fn, flush=None, iters: int = 20) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush.sum()
-            fn()
-        torch.cuda.synchronize()
-    ms = Trace(prof).matching_ms(LRU_KERNELS)
-    if ms <= 0:
-        fail("the profiler shows no RG-LRU kernel time")
-    return ms / iters
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush.sum()
+                fn()
+            torch.cuda.synchronize()
+        trace = Trace(prof)
+        ms = trace.matching_ms(LRU_KERNELS)
+        if ms > 0:
+            return ms / iters
+        # the scan has passed its checks, so a session without its kernels
+        # is the profiler's fault: say what the trace held, profile once more
+        seen = sorted(trace.kernels, key=lambda n: -trace.kernels[n][0])
+        log(f"[kernels] lru_scan profile {attempt} of 2 shows no RG-LRU kernel time: "
+            f"{sum(n for n, _ in trace.kernels.values())} device events, kernels "
+            f"{', '.join(name[:40] for name in seen[:4]) or 'none'}"
+            + ("; profiling again" if attempt == 1 else ""))
+    fail("the profiler shows no RG-LRU kernel time in two sessions")
 
 
 def _old_lru(lib):
@@ -1197,25 +1241,29 @@ def grad_rivals_ms(g, q, k, v, window) -> tuple[float, float]:
 # / max |ref| per gradient: in f32 both sum in f32 in other orders (TOL's
 # rtol, far above the sums' roundings); in bf16 each rounds its f32 gradient
 # once to bf16, so the two may part by one bf16 ulp, at most 2^-7 (0.78 %) of
-# the gradient's scale, and 1 % leaves room for the f32 sums' order.
+# the gradient's scale, and 1 % leaves room for the f32 sums' order and the
+# kernel's bf16 P and dS operands (its plain emulation,
+# tests/test_torch_flash_bwd_tc.py, is 0.2-0.7 % from flash_bwd_ref).
 BWD_REL = {torch.float32: TOL[torch.float32]["rtol"], torch.bfloat16: 1e-2}
 # FLASH_GRAD_CASES (causal) and CHUNKED_FLASH, the main path's shapes (at
 # 4096 the window of 2048 masks: the window bounds of every pass run), plus
 # seamless-m4t-large-v2's cross-attention at prefill (not causal, Sq !=
 # Sk), llama3-smoke's head_dim 8 (run at 16), granite-8b's heads at D = 128
-# with a window, and D = 32 with a window and no causal mask, ragged against
-# the tiles: (B, Sq, Sk, H, K, D, causal, window).
+# with a window (the dK/dV pass split over the q heads) and at 2 x 2048
+# (512 CTAs: not split), and D = 32 with a window and no causal mask, ragged
+# against the tiles: (B, Sq, Sk, H, K, D, causal, window).
 FLASH_BWD_CASES = ([(B, S, S, H, K, D, True, w)
                     for B, S, H, K, D, w in FLASH_GRAD_CASES + CHUNKED_FLASH]
                    + [(1, 340, 1024, 16, 16, 64, False, None), (2, 45, 45, 8, 2, 8, True, None),
-                      (1, 340, 340, 32, 8, 128, True, 256), (1, 200, 200, 4, 2, 32, False, 64)])
+                      (1, 340, 340, 32, 8, 128, True, 256), (2, 2048, 2048, 32, 8, 128, True, None),
+                      (1, 200, 200, 4, 2, 32, False, 64)])
 # Timed beside flash_bwd_ref, flash_vjp, SDPA's backward and the bound: the
 # main path's shapes in their models' precisions (tiny f32, the kernels
 # line's record; recurrentgemma-2b bf16), then FLASH_GRAD_TIMED's.
 FLASH_BWD_MAIN = [CHUNKED_FLASH[0] + (torch.float32,), CHUNKED_FLASH[1] + (torch.bfloat16,)]
 
 
-def check_flash_bwd(gen, dev, rule: list) -> list:
+def check_flash_bwd(gen, dev, rule: list, old) -> list:
     """The backward kernel (the flash op's gradient under ``chunked``)
     against flash_bwd_ref, its plain version, on the same inputs and the
     forward kernel's output, at FLASH_BWD_CASES in f32 and bf16 (BWD_REL of
@@ -1224,7 +1272,9 @@ def check_flash_bwd(gen, dev, rule: list) -> list:
     kernel's. Times it at FLASH_BWD_MAIN and FLASH_GRAD_TIMED by CUDA
     events beside flash_bwd_ref, the unchunked rule (flash_vjp), SDPA's
     backward and the bound; at FLASH_GRAD_TIMED the last three are
-    ``rule``'s, check_flash_grad's at the same shapes."""
+    ``rule``'s, check_flash_grad's at the same shapes. With ``old`` (the
+    old design's library, --old-src) each kernel time is taken in turns
+    with the old design's."""
     gen_b = torch.Generator(device=dev).manual_seed(3)   # leaves `gen`'s draws alone
 
     def inputs(B, Sq, Sk, H, K, D, dt):
@@ -1272,12 +1322,15 @@ def check_flash_bwd(gen, dev, rule: list) -> list:
         fail("the flash op's gradient under chunked differs from the backward kernel's")
 
     timings = []
+    old_run = _old_flash_bwd(old) if old is not None else None
     for (B, S, H, K, D, window, dt), r in zip(FLASH_BWD_MAIN + FLASH_GRAD_TIMED,
                                               [None] * len(FLASH_BWD_MAIN) + rule):
         q, k, v, g = inputs(B, S, S, H, K, D, dt)
         o = flash_attention_kernel(q, k, v, causal=True, window=window)
-        ms = time_ms(lambda: flash_attention_bwd_kernel(g, q, k, v, o, causal=True,
-                                                        window=window), iters=10)
+        ms, old_ms = time_in_turns(
+            lambda: flash_attention_bwd_kernel(g, q, k, v, o, causal=True, window=window),
+            old_run and (lambda: old_run(g, q, k, v, o, window)),
+            timer=lambda fn: time_ms(fn, iters=10))
         plain_ms = time_ms(lambda: flash_bwd_ref(g, q, k, v, causal=True, window=window),
                            iters=3, warmup=1)
         if r is None:                   # a main-path shape, which check_flash_grad skips
@@ -1287,7 +1340,8 @@ def check_flash_bwd(gen, dev, rule: list) -> list:
         timings.append(dict(
             shape=f"{str(dt)[6:]} causal B={B} S={S} H={H} K={K} D={D}"
                   + (f" w={window}" if window else ""),
-            ms=ms, plain_ms=plain_ms, rule_ms=r["ms"], library_ms=r["library_ms"],
+            ms=ms, old_ms=old_ms, plain_ms=plain_ms, rule_ms=r["ms"],
+            library_ms=r["library_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             max_abs_err=errs[(B, S, S, H, D, dt)]))
         del q, k, v, g, o
@@ -1373,7 +1427,8 @@ def phase_kernels(dev, old: dict) -> dict:
     at_phase(3, "kernels", "flash_attention gradient rule")
     recs["flash_grad"] = check_flash_grad(gen, dev)
     at_phase(3, "kernels", "flash_attention backward kernel")
-    recs["flash_bwd"] = check_flash_bwd(gen, dev, recs["flash_grad"])
+    recs["flash_bwd"] = check_flash_bwd(gen, dev, recs["flash_grad"],
+                                        old.get("flash_attention_bwd"))
     at_phase(3, "kernels", "lru_scan gradient rule")
     recs["lru_grad"] = check_lru_grad(gen, dev)
     return recs
@@ -2372,9 +2427,34 @@ def dynamic_smem() -> dict:
     bwd = flash_module._bwd_library().repro_flash_attention_bwd_smem_bytes
     return {"flash_fwd_tc_kernel<128,128>": flash(128, 1),
             "flash_fwd_tc_kernel<256,256>": flash(256, 1),
-            "flash_bwd_dkdv_kernel<64>": bwd(64), "flash_bwd_dkdv_kernel<256>": bwd(256),
+            "flash_bwd_dkdv_tc_kernel<64,64>": bwd(64, 1),
+            "flash_bwd_dkdv_tc_kernel<256,256>": bwd(256, 1),
+            "flash_bwd_dkdv_kernel<64,64>": bwd(64, 0),
             "ssd_chunk_tc_kernel": ssd.repro_ssd_bf16_smem_bytes(256),
             "ssd_state_tc_kernel": ssd.repro_ssd_bf16_state_smem_bytes()}
+
+
+def bwd_kernels(info: dict) -> str:
+    """The backward library's kernels by name, each name's HMMA and LDGSTS
+    summed: the tensor-core kernels' registers/spill bytes at each head_dim
+    (the last template argument), the others' register range and most
+    spill bytes."""
+    names = {}
+    for fn, i in info.items():
+        name, _, targs = fn.partition("<")
+        names.setdefault(name.removeprefix("flash_bwd_").removesuffix("_kernel"), []).append(
+            (targs.rstrip(">").split(",")[-1], i))
+    parts = []
+    for name, items in names.items():
+        if name.endswith("_tc"):
+            regs = " ".join(f"{label}:{i['registers']}/{i['spill_bytes']}" for label, i in
+                            sorted(items, key=lambda item: int(item[0])))
+        else:
+            r = sorted(i["registers"] or 0 for _, i in items)
+            regs = f"{r[0]}-{r[-1]}/{max(i['spill_bytes'] for _, i in items)}"
+        parts.append(f"{name} {regs}, {sum(i.get('hmma', 0) for _, i in items)}, "
+                     f"{sum(i.get('ldgsts', 0) for _, i in items)}")
+    return "; ".join(parts)
 
 
 def _old(ms) -> str:
@@ -2392,7 +2472,7 @@ def summary(built: dict, recs: dict, timings: dict) -> None:
     detail = build.BUILD_DIR / "chip_smoke_build.json"
     detail.write_text(json.dumps({"info": built["info"], "dynamic_smem": smem,
                                   "timings": timings}, indent=1))
-    log(f"[summary] per library (each kernel, and the timings not in the kernels line, in "
+    log(f"[summary] per library (each kernel, and the other timings, in "
         f"{os.path.relpath(detail, ROOT)}): kernels, "
         "registers, spill bytes, HMMA, LDGSTS: " + "; ".join(
             f"{name} {len(k)}, {min(i['registers'] or 0 for i in k.values())}-"
@@ -2400,13 +2480,15 @@ def summary(built: dict, recs: dict, timings: dict) -> None:
             f"{max(i['spill_bytes'] for i in k.values())}, "
             f"{sum(i.get('hmma', 0) for i in k.values())}, "
             f"{sum(i.get('ldgsts', 0) for i in k.values())}"
-            for name, k in built["info"].items())
+            for name, k in built["info"].items() if name != "flash_attention_bwd")
         + "; dynamic shared memory " + ", ".join(f"{fn} {b}" for fn, b in smem.items()))
+    log("[summary] flash_attention_bwd by kernel, registers/spill bytes (tensor-core kernels: "
+        "at each head_dim), HMMA, LDGSTS: " + bwd_kernels(built["info"]["flash_attention_bwd"]))
     rows = {"flash_attention": recs["flash"].values(), "lru_scan": recs["lru"].values(),
             "ssd_scan": [recs["ssd"]]}
-    log("[summary] bf16 kernel ms (old design), share of the bound; plain, library and "
-        "bound ms in the kernels line: " + "; ".join(
-            f"{name} " + ", ".join(f"{t['shape'][5:].replace(' B=1 ', ' ')} "
+    log("[summary] bf16 kernel ms (old design), share of the bound (causal unless full); "
+        "plain, library and bound ms in the kernels line: " + "; ".join(
+            f"{name} " + ", ".join(f"{t['shape'][5:].replace(' B=1 ', ' ').replace('causal ', '')} "
                                    f"{t['ms']:.4f}{_old(t['old_ms'])} {t['bound_ms'] / t['ms']:.1%}"
                                    for t in ts) for name, ts in rows.items()))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2419,14 +2501,19 @@ def summary(built: dict, recs: dict, timings: dict) -> None:
     g = recs["ssd_grad"]
     rules = [f"ssd_scan (plain recompute) {g['shape']}: {g['ms']:.4f} | none | "
              f"{g['bound_ms']:.4f} {g['bound_by']}"]
+
+    def short(shape: str) -> str:
+        return (shape.replace("float32 ", "f32 ").replace("bfloat16 ", "bf16 ")
+                .replace("causal ", "").replace(" window=None", "").replace("window=", "w="))
+
     rules.append("flash_attention (plain recompute) " + ", ".join(
-        f"{t['shape'].replace(' window=None', '')}: {t['ms']:.4f} | SDPA backward "
-        f"{t['library_ms']:.4f} | {t['bound_ms']:.4f} {t['bound_by']}"
-        for t in recs["flash_grad"]))
-    rules.append("flash_attention_bwd kernel (attn_chunked) " + ", ".join(
-        f"{t['shape']}: {t['ms']:.4f} (flash_bwd_ref {t['plain_ms']:.4f}, flash_vjp "
-        f"{t['rule_ms']:.4f}) | SDPA backward {t['library_ms']:.4f} | {t['bound_ms']:.4f} "
-        f"{t['bound_by']}" for t in recs["flash_bwd"]))
+        f"{short(t['shape'])}: {t['ms']:.4f} | SDPA backward {t['library_ms']:.4f} | "
+        f"{t['bound_ms']:.4f} {t['bound_by']}" for t in recs["flash_grad"]))
+    rules.append("flash_attention_bwd kernel (attn_chunked), causal, ms (old design) | "
+                 "flash_bwd_ref, flash_vjp, SDPA backward | bound: " + ", ".join(
+                     f"{short(t['shape'])} {t['ms']:.4f}{_old(t['old_ms'])} | "
+                     f"{t['plain_ms']:.4f}, {t['rule_ms']:.4f}, {t['library_ms']:.4f} | "
+                     f"{t['bound_ms']:.4f} {t['bound_by']}" for t in recs["flash_bwd"]))
     rules += [f"lru_scan (reversed scan) {t['shape']}: {t['ms']:.4f} (autograd through the "
               f"plain scan {t['plain_ms']:.4f}) | none | {t['bound_ms']:.4f} {t['bound_by']}"
               for t in recs["lru_grad"]]
@@ -2437,8 +2524,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old-src", type=Path, default=None,
                     help="a directory with another design's flash_attention.cu, "
-                         "ssd_scan.cu or lru_scan.cu, any of them (the C interfaces "
-                         "assumed: flash as now, the SSD's FMA-only repro_ssd_fwd "
+                         "flash_attention_bwd.cu, ssd_scan.cu or lru_scan.cu, any of "
+                         "them (the C interfaces assumed: flash and its backward as "
+                         "now, the SSD's FMA-only repro_ssd_fwd "
                          "with is_bf16, the scan's one-thread-per-channel "
                          "repro_lru_scan(a, b, y, B, S, W, is_bf16, stream)), "
                          "timed in turns beside this one's")

@@ -23,8 +23,8 @@ import torch
 
 from repro_torch.kernels.build import build_library
 
-__all__ = ["flash_attention_kernel", "flash_attention_bwd_kernel", "SOURCE", "SOURCE_BWD",
-           "HEAD_DIMS"]
+__all__ = ["flash_attention_kernel", "flash_attention_bwd_kernel", "bind_bwd", "SOURCE",
+           "SOURCE_BWD", "HEAD_DIMS"]
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "flash_attention.cu"
 SOURCE_BWD = SOURCE.with_name("flash_attention_bwd.cu")
@@ -50,19 +50,25 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument and return types of a backward library's C
+    functions (``SOURCE_BWD``'s, or a build of a variant of it)."""
+    fn = lib.repro_flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.repro_flash_attention_bwd_scratch_floats.argtypes = [ctypes.c_int] * 7
+    lib.repro_flash_attention_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.repro_flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.repro_flash_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
 def _bwd_library() -> ctypes.CDLL:
     global _bwd_lib
     with _lock:
-        if _bwd_lib is not None:
-            return _bwd_lib
-        lib = build_library(SOURCE_BWD)
-        fn = lib.repro_flash_attention_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.repro_flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int]
-        lib.repro_flash_attention_bwd_smem_bytes.restype = ctypes.c_longlong
-        _bwd_lib = lib
+        if _bwd_lib is None:
+            _bwd_lib = bind_bwd(build_library(SOURCE_BWD))
     return _bwd_lib
 
 
@@ -125,7 +131,9 @@ def flash_attention_bwd_kernel(grad_o: torch.Tensor, q: torch.Tensor, k: torch.T
     the inputs' dtype, the same masks and GQA, scale D^-0.5. q, o, grad_o:
     (B, Sq, H, D); k, v: (B, Sk, K, D); contiguous CUDA tensors of one dtype
     (float32 or bfloat16). Three kernels a call (the rows' log-sum-exp and
-    rowsum(dO o O), then dK and dV, then dQ); ``launches`` counts calls."""
+    rowsum(dO o O), then dK and dV, then dQ), and a fourth that sums the q
+    heads' dK and dV where the library splits the dK/dV pass over them;
+    ``launches`` counts calls."""
     _check(q, k, v, window)
     for name, t in (("grad_o", grad_o), ("o", o)):
         if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
@@ -138,15 +146,19 @@ def flash_attention_bwd_kernel(grad_o: torch.Tensor, q: torch.Tensor, k: torch.T
     if H > 65535 or B > 65535:
         raise ValueError(f"H={H} and B={B} must be at most 65535 (the grid's y and z)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = _bwd_library().repro_flash_attention_bwd
+    lib = _bwd_library()
     with torch.cuda.device(q.device):
+        # the rows' L, then the dK/dV pass's per-head f32 partials where the
+        # library's split rule (on this device's SM count) splits it
+        lse = torch.empty(lib.repro_flash_attention_bwd_scratch_floats(
+            B, Sq, Sk, H, K, D, _DTYPES[q.dtype]), dtype=torch.float32, device=q.device)
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(grad_o.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), B, Sq, Sk, H, K, D, _DTYPES[q.dtype], int(causal),
-                 0 if window is None else int(window), D ** -0.5, stream)
+        err = lib.repro_flash_attention_bwd(
+            grad_o.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            B, Sq, Sk, H, K, D, _DTYPES[q.dtype], int(causal),
+            0 if window is None else int(window), D ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
     with _lock:
