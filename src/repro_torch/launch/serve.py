@@ -33,24 +33,51 @@ model, the cache by ``cache_pspecs``) on a ``DeviceMesh`` over the world
 with or without it (the baseline rules without):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --full --tp2d
+
+It prints what the engine recorded (:mod:`repro_torch.obs`): the requests,
+their queue wait, prefill time per 1,000 prompt tokens, the mean decode step
+and the mean queue length at a step's start. ``--trace-out PATH`` writes the
+engine's spans as a Chrome trace (JSON), on the clock of ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
-import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import configs
+from repro_torch import configs, obs
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import model as M
 from repro_torch.parallel.sharding import make_rules
 from repro_torch.serve.engine import ServeEngine
+
+
+def summary(spans) -> str:
+    """One line over the engine's spans (:mod:`repro_torch.serve.engine`)."""
+    def dur(name):
+        return [(s.end - s.start) / 1e6 for s in spans if s.name == name]
+    waits, decode = dur("serve.request.queued"), dur("serve.decode")
+    prefill = [s for s in spans if s.name == "serve.request.prefill"]
+    queue = [s.attrs["queue"] for s in spans if s.name == "serve.step"]
+    tokens = sum(s.attrs["tokens"] for s in prefill)
+    line = [f"requests {len(waits)}"]
+    if waits:
+        p50, p90 = np.percentile(waits, [50, 90])
+        line.append(f"queue wait p50 {p50:.1f} ms, p90 {p90:.1f} ms")
+    if tokens:
+        ms = sum(s.end - s.start for s in prefill) / 1e6
+        line.append(f"prefill {1e3 * ms / tokens:.1f} ms per 1,000 prompt tokens")
+    if decode:
+        line.append(f"decode step {np.mean(decode):.1f} ms")
+    if queue:
+        line.append(f"queue {np.mean(queue):.2f} at a step's start")
+    return "; ".join(line)
 
 
 def main(argv=None) -> list:
@@ -66,6 +93,8 @@ def main(argv=None) -> list:
     ap.add_argument("--tp2d", action="store_true",
                     help="serving rule set (resident 2-D-sharded weights)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="write the engine's spans as a Chrome trace (JSON)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -82,17 +111,20 @@ def main(argv=None) -> list:
                          max_len=args.max_len, device=device, mesh=mesh, rules=rules)
 
     rng = np.random.default_rng(args.seed)
+    since = obs.now()
     for _ in range(args.requests):
         plen = int(rng.integers(4, args.max_len // 3))
         engine.submit(rng.integers(0, cfg.vocab_size, plen).tolist(),
                       max_new_tokens=int(rng.integers(2, args.max_new)))
-    t0 = time.perf_counter()
     done = engine.run()
-    dt = time.perf_counter() - t0
     total = sum(len(r.generated) for r in done)
     print(f"arch={cfg.name} device={device} served {len(done)} requests, "
-          f"{total} tokens in {engine.steps_run} steps ({dt:.1f}s)")
+          f"{total} tokens in {engine.steps_run} steps")
+    print(summary([s for s in obs.RECORDER.spans if s.start >= since]))
     print(f"slot efficiency {total / (engine.steps_run * args.max_batch):.1%}")
+    if args.trace_out:
+        with open(args.trace_out, "w") as f:
+            json.dump({"traceEvents": obs.RECORDER.chrome_events()}, f)
     if mesh is not None:
         dist.destroy_process_group()        # the group the mesh started or joined
     return done

@@ -15,6 +15,16 @@ With a ``mesh`` and a rule set (the reference's serving rules are
 ParamSpecs, the cache by ``cache_pspecs``, and the steps run sharded
 (:mod:`repro_torch.parallel.steps`); a prefill's row is spliced into each
 rank's own cache shard, so the cache is never gathered.
+
+Each request and step is recorded in :data:`repro_torch.obs.RECORDER`:
+``serve.step`` (the step's index, the queue's length and the active slots at
+its start, the requests it admitted); per admitted request, children of its
+step, ``serve.request.queued`` (``submit()`` to its prefill),
+``serve.request.prefill`` (its batch, the prefill, the splice and the first
+token read on the host) and ``serve.request.hold`` (that read to the step's
+return); and ``serve.decode`` (the decode call to its tokens on the host).
+Spans end at host reads the engine makes anyway or at the step's return, so
+the recording adds no synchronisation and no device work.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.parallel.sharding import index_put_local
@@ -69,6 +80,7 @@ class ServeEngine:
         self.queue: list[Request] = []
         self.requests: dict[int, Request] = {}
         self._ids = itertools.count()
+        self._submitted: dict[int, int] = {}    # rid -> obs.now() at submit()
         self.steps_run = 0
 
     # ------------------------------------------------------------- requests
@@ -78,6 +90,7 @@ class ServeEngine:
         req = Request(rid, list(prompt), max_new_tokens, eos_id)
         self.requests[rid] = req
         self.queue.append(req)
+        self._submitted[rid] = obs.now()
         return rid
 
     # -------------------------------------------------------------- interns
@@ -108,14 +121,24 @@ class ServeEngine:
                                           dtype=M.compute_dtype(self.cfg), device=self.device)
         return batch
 
-    def _admit(self) -> None:
+    def _admit(self, step_id: int) -> list[tuple[int, int]]:
+        """Prefill queued requests into free slots; returns (rid, time of
+        its first token on the host) per request admitted."""
+        rec, firsts = obs.RECORDER, []
         for slot_id, slot in enumerate(self.slots):
             if slot.active or not self.queue:
                 continue
             req = self.queue.pop(0)
+            t = obs.now()
+            rec.record("serve.request.queued", self._submitted.pop(req.rid), t,
+                       parent=step_id, rid=req.rid)
             logits, row_cache = self.prefill(self.params, self.prefill_batch(req.prompt))
             self._splice(row_cache, slot_id)
             first = int(torch.argmax(logits[0]))
+            t_first = obs.now()
+            rec.record("serve.request.prefill", t, t_first, parent=step_id, rid=req.rid,
+                       tokens=len(req.prompt))
+            firsts.append((req.rid, t_first))
             req.generated.append(first)
             F = self.cfg.frontend_tokens if self.cfg.family == "vlm" else 0
             slot.active, slot.rid = True, req.rid
@@ -123,24 +146,27 @@ class ServeEngine:
             slot.budget = req.max_new_tokens - 1
             if slot.budget <= 0 or first == req.eos_id:
                 req.done, slot.active = True, False
+        return firsts
 
-    # ----------------------------------------------------------------- step
-    def step(self) -> bool:
-        """Admit + one decode step. Returns True while work remains."""
-        self._admit()
-        if not any(s.active for s in self.slots):
-            return bool(self.queue)
+    def _decode(self, step_id: int) -> None:
+        """One decode step over every active slot."""
         tokens = np.zeros((self.max_batch, 1), np.int64)
         pos = np.zeros((self.max_batch,), np.int64)
+        active = contexts = 0
         for i, slot in enumerate(self.slots):
             if slot.active:
                 tokens[i, 0] = self.requests[slot.rid].generated[-1]
                 pos[i] = slot.pos
-        logits, self.cache = self.decode(
-            self.params, self.cache, torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(pos).to(self.device))
+                active += 1
+                contexts += slot.pos + 1
+        tokens = torch.from_numpy(tokens).to(self.device)
+        pos = torch.from_numpy(pos).to(self.device)
+        t = obs.now()
+        logits, self.cache = self.decode(self.params, self.cache, tokens, pos)
         self.steps_run += 1
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        obs.RECORDER.record("serve.decode", t, obs.now(), parent=step_id, active=active,
+                            contexts=contexts)
         for i, slot in enumerate(self.slots):
             if not slot.active:
                 continue
@@ -152,7 +178,27 @@ class ServeEngine:
             if slot.budget <= 0 or tok == req.eos_id or \
                     slot.pos >= self.max_len - 1:
                 req.done, slot.active = True, False
-        return True
+
+    # ----------------------------------------------------------------- step
+    def step(self) -> bool:
+        """Admit + one decode step. Returns True while work remains."""
+        rec = obs.RECORDER
+        rec.anchor()
+        t0, step_id = obs.now(), rec.new_id()
+        index, queued = self.steps_run, len(self.queue)
+        active = sum(s.active for s in self.slots)
+        firsts = self._admit(step_id)
+        if any(s.active for s in self.slots):
+            self._decode(step_id)
+            more = True
+        else:
+            more = bool(self.queue)
+        t1 = obs.now()
+        for rid, t in firsts:
+            rec.record("serve.request.hold", t, t1, parent=step_id, rid=rid)
+        rec.record("serve.step", t0, t1, span_id=step_id, index=index, queue=queued,
+                   active=active, admitted=len(firsts))
+        return more
 
     def run(self, max_steps: int = 10_000) -> list[Request]:
         for _ in range(max_steps):
