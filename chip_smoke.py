@@ -11,7 +11,8 @@ nothing is caught and carried on past:
   1. device   — a CUDA card must be visible; prints its name and power limit;
   2. build    — builds the hand-written kernels from src/repro_torch/csrc
                 (flash_attention.cu, flash_attention_bwd.cu, lru_scan.cu,
-                ssd_scan.cu), one nvcc per source, all started together
+                ssd_scan.cu, decode_attention.cu), one nvcc per source, all
+                started together
                 (with --old-src, another design's sources of those names,
                 those of them that DIR holds, beside them);
                 reads registers, spills and shared memory from the
@@ -59,14 +60,24 @@ nothing is caught and carried on past:
                 over the q heads and not), checks the op under chunked
                 launches it once, and times it there beside flash_bwd_ref,
                 flash_vjp, SDPA's backward, its bound and, with --old-src,
-                the other design;
+                the other design; holds the decode-attention kernel against
+                decode_attention_ref (bf16 to one rounding of the output,
+                f32 to TOL) at the main path's shapes (granite-8b's 64 and
+                32 rows of 4096 slots, positions drawn from the benchmark's
+                mixes; recurrentgemma-2b's wrapped window ring of 2048 at
+                D = 256, K = 1) and others (head_dim 8 to 256, G of 1 to
+                16), at the split rule's chunk length, at 64 slots and
+                unsplit, and times it beside its byte bound, the plain
+                version and SDPA (the main shape also by chunk length);
   4. model    — MODEL_CHECKS (granite-, recurrentgemma-, mamba2-, qwen2.5-,
                 mistral-nemo- with head_dim 32, llama3-, mixtral-, moonshot-,
                 internvl2- and seamless-smoke) in float32 on the card against
                 the same seeded weights on the CPU: prefill, decode and every
                 cache leaf (seamless's enc_k and enc_v too), with the kernel
                 launches per prefill and per decode step (none for mamba2:
-                its prefill runs the plain scan, as the reference's does);
+                its prefill runs the plain scan, as the reference's does; a
+                decode step launches the decode kernel once per
+                self-attention layer);
                 TRAIN_CHECKS (mamba2-, tiny-, recurrentgemma-, qwen2.5-,
                 mixtral-, internvl2- and seamless-smoke) training in float32,
                 card against CPU: the
@@ -143,7 +154,7 @@ A summary block follows (phase 10: card, build time, each library's registers,
 spills, tensor-core and cp.async instruction counts, with each kernel's in
 src/repro_torch/_build/chip_smoke_build.json, where each kernel's other timed
 shapes and its gradient rule's timings go too; the kernel and rule times
-beside their bounds). The whole output stays under 20,000 bytes.
+beside their bounds). The whole output stays under 22,000 bytes.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel record. Imports nothing of JAX or of the JAX package.
 """
@@ -211,6 +222,8 @@ try:
 
     from repro_torch import configs  # noqa: E402
     from repro_torch.kernels import build  # noqa: E402
+    from repro_torch.kernels.decode_attention import decode_attention_kernel, decode_attention_ref  # noqa: E402
+    from repro_torch.kernels.decode_attention import kernel as decode_module  # noqa: E402
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention_kernel  # noqa: E402
     from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel, flash_bwd_ref  # noqa: E402
     from repro_torch.kernels.flash_attention import kernel as flash_module  # noqa: E402
@@ -368,6 +381,7 @@ def leaves(tree, prefix=""):
 
 
 def reset_counts() -> None:
+    decode_attention_kernel.launches = 0
     flash_attention_kernel.launches = 0
     flash_attention_bwd_kernel.launches = 0
     lru_scan_kernel.launches = 0
@@ -378,14 +392,16 @@ def read_counts() -> dict:
     return {"flash_attention": flash_attention_kernel.launches,
             "flash_attention_bwd": flash_attention_bwd_kernel.launches,
             "lru_scan": lru_scan_kernel.launches,
-            "ssd_scan": ssd_kernel.launches}
+            "ssd_scan": ssd_kernel.launches,
+            "decode_attention": decode_attention_kernel.launches}
 
 
-NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "lru_scan": 0, "ssd_scan": 0}
+NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "lru_scan": 0, "ssd_scan": 0,
+               "decode_attention": 0}
 
 
 SHORT = {"flash_attention": "flash", "flash_attention_bwd": "flash_bwd", "lru_scan": "lru",
-         "ssd_scan": "ssd"}
+         "ssd_scan": "ssd", "decode_attention": "decode"}
 
 
 def counts_str(counts: dict) -> str:
@@ -417,11 +433,17 @@ def launches_per_prefill(cfg) -> dict:
             "lru_scan": kinds.count("rglru")}
 
 
+DECODE_KINDS = ("attn", "local_attn", "cross")
+
+
 def launches_per_decode(cfg) -> dict:
-    """A decode step attends over its cache in plain PyTorch, as the
-    reference does, except a ``cross`` layer's cross-attention over the
-    encoder's K/V: one flash launch (Sq = 1) per cross layer."""
-    return {**NO_LAUNCHES, "flash_attention": tfm.layer_kinds(cfg).count("cross")}
+    """A decode step attends over its cache with the decode kernel, one
+    launch per self-attention (``attn``, ``local_attn`` and a ``cross``
+    layer's self-attention), and a ``cross`` layer's cross-attention over the
+    encoder's K/V with flash: one launch (Sq = 1) per cross layer."""
+    kinds = tfm.layer_kinds(cfg)
+    return {**NO_LAUNCHES, "flash_attention": kinds.count("cross"),
+            "decode_attention": sum(k in DECODE_KINDS for k in kinds)}
 
 
 def launches_per_train_step(cfg, microbatches: int = 1) -> dict:
@@ -438,8 +460,8 @@ def launches_per_train_step(cfg, microbatches: int = 1) -> dict:
     kinds = tfm.layer_kinds(cfg)
     passes = 2 if cfg.remat else 1
     chunked = _flash_per_pass(cfg) - kinds.count("cross") if cfg.attn_chunked else 0
-    per_mb = {"flash_attention": passes * _flash_per_pass(cfg), "flash_attention_bwd": chunked,
-              "lru_scan": (passes + 1) * kinds.count("rglru"),
+    per_mb = {**NO_LAUNCHES, "flash_attention": passes * _flash_per_pass(cfg),
+              "flash_attention_bwd": chunked, "lru_scan": (passes + 1) * kinds.count("rglru"),
               "ssd_scan": passes * kinds.count("ssm")}
     return {k: n * microbatches for k, n in per_mb.items()}
 
@@ -463,7 +485,8 @@ def phase_device() -> str:
 KERNEL_SOURCES = {"flash_attention": (flash_module.SOURCE, flash_module._library),
                   "flash_attention_bwd": (flash_module.SOURCE_BWD, flash_module._bwd_library),
                   "lru_scan": (lru_module.SOURCE, lru_module._library),
-                  "ssd_scan": (ssd_module.SOURCE, ssd_module._library)}
+                  "ssd_scan": (ssd_module.SOURCE, ssd_module._library),
+                  "decode_attention": (decode_module.SOURCE, decode_module._library)}
 OLD_BUILD_DIR = build.BUILD_DIR / "old"
 
 
@@ -532,22 +555,20 @@ def sass_counts(lib_path: Path) -> dict:
     return {k: tuple(v) for k, v in counts.items()}
 
 
-def _built(source: Path, build_dir: Path) -> Path:
-    """The library file build_library made for ``source`` in ``build_dir``."""
-    libs = sorted(build_dir.glob(f"lib{source.stem}-*.so"), key=lambda f: f.stat().st_mtime)
-    if not libs:
-        fail(f"no library built for {source.name} in {build_dir}")
-    return libs[-1]
-
-
 def phase_build(old_src: Path | None) -> dict:
-    """Builds the four sources, one nvcc each, all started together (and
-    the old design's sources that ``old_src`` holds beside them, into their
-    own directory); then reads registers, spills and shared memory from the
-    -Xptxas -v logs and counts HMMA and LDGSTS in the SASS."""
+    """Builds the five sources, one nvcc each (the decode kernel's once for
+    each dtype and head_dim), all started together (and the old design's
+    sources that ``old_src`` holds beside them, into their own directory);
+    then reads registers, spills and shared memory from the -Xptxas -v logs
+    (the decode kernel's of its bf16, D = 128 library) and counts HMMA and
+    LDGSTS in the SASS."""
     at_phase(2, "build")
     t0 = time.perf_counter()
     jobs = {name: loader for name, (_, loader) in KERNEL_SOURCES.items()}
+    for dt in (torch.bfloat16, torch.float32):   # the decode kernel's other libraries
+        for D in decode_module.HEAD_DIMS:
+            jobs.setdefault(f"decode_attention {str(dt)[6:]} D={D}",
+                            lambda dt=dt, D=D: decode_module._library(dt, D))
     if old_src is not None:
         old = [name for name in KERNEL_SOURCES if (old_src / f"{name}.cu").exists()]
         if not old:
@@ -561,14 +582,14 @@ def phase_build(old_src: Path | None) -> dict:
         libs = {name: fut.result() for name, fut in futures.items()}
     seconds = time.perf_counter() - t0
     info = {}
-    for name, (source, _) in KERNEL_SOURCES.items():
-        path = _built(source, build.BUILD_DIR)
+    for name in KERNEL_SOURCES:
+        path = Path(libs[name]._name)
         kernels = ptxas_info(path.with_suffix(".log"))
         for fn, (hmma, ldgsts) in sass_counts(path).items():
             if fn in kernels:
                 kernels[fn].update(hmma=hmma, ldgsts=ldgsts)
         info[name] = kernels
-    log(f"[build] {len(jobs)} sources built and loaded in {seconds:.3f} s (set-up)")
+    log(f"[build] {len(jobs)} libraries built and loaded in {seconds:.3f} s (set-up)")
     return {"seconds": seconds, "info": info,
             "old": {k[4:]: v for k, v in libs.items() if k.startswith("old ")}}
 
@@ -1413,6 +1434,130 @@ def check_lru_grad(gen, dev) -> list:
                  max_rel_err=max(r[1] for r in rel if "bfloat16" in r[0]))]
 
 
+# The decode kernel against decode_attention_ref: bf16 is held to one
+# rounding of the output (an f32 sum in another order may round it the
+# other way: one ulp, at most 2^-7 of the value); f32 to TOL.
+DECODE_TOL = {torch.float32: TOL[torch.float32], torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7)}
+# Serving mixes of the benchmark's cells (gpubench/workloads), for the rows'
+# positions: lognormal prompt and output lengths (median, sigma, max).
+CONVERSATION = ((1020, 0.8, 3072), (129, 1.0, 1024))
+CODING = ((1500, 0.8, 3840), (13, 1.0, 256))
+# (name, B, Smax, H, K, D, window, mix): the main path's shapes (the
+# kernels line's first), then the other configs' and the tiny variants'.
+DECODE_MAIN = ("granite-8b batch", 64, 4096, 32, 8, 128, None, CONVERSATION)
+DECODE_TIMED = [DECODE_MAIN,
+                ("granite-8b serve", 32, 4096, 32, 8, 128, None, CODING),
+                ("recurrentgemma-2b", 8, 2048, 10, 1, 256, 2048, "wrapped"),
+                ("llama3-405b G=16", 8, 4096, 128, 8, 128, None, CONVERSATION),
+                ("moonshot G=1", 8, 1024, 16, 16, 128, None, "uniform")]
+DECODE_CASES = DECODE_TIMED + [
+    ("qwen2.5-14b G=5", 8, 1024, 40, 8, 128, None, "uniform"),
+    ("seamless D=64", 4, 1024, 16, 16, 64, None, "uniform"),
+    ("mixtral swa ring", 4, 512, 48, 8, 128, 512, "wrapped"),
+    ("mistral-nemo-smoke D=32", 4, 96, 4, 2, 32, None, "wrapped"),
+    ("granite-smoke D=16", 4, 96, 4, 2, 16, None, "wrapped"),
+    ("llama3-smoke D=8", 4, 96, 8, 2, 8, None, "wrapped"),
+    ("recurrentgemma-smoke window", 4, 32, 4, 1, 16, 32, "wrapped"),
+    ("granite window 256", 8, 4096, 32, 8, 128, 256, CONVERSATION)]
+DECODE_CHUNKS = (128, 256, 512, 1024, 4096)      # forced chunk lengths, timed at the main shape
+
+
+def decode_positions(B: int, Smax: int, mix, gen) -> torch.Tensor:
+    """Each row's position: a prompt and part of its output drawn from a
+    serving mix's lognormals (clipped as the mix clips), the ring's length
+    at most; ``wrapped``: past the ring, up to 3 times round; ``uniform``:
+    anywhere in it; the first row at 0 and the second at the ring's last
+    slot where the mix draws (the edges)."""
+    if mix == "wrapped":
+        return torch.randint(0, 3 * Smax, (B,), generator=gen)
+    if mix == "uniform":
+        pos = torch.randint(0, Smax, (B,), generator=gen)
+    else:
+        (pm, ps, pmax), (om, os_, omax) = mix
+        z = torch.randn((2, B), generator=gen)
+        prompt = (pm * torch.exp(ps * z[0])).round().clamp(1, pmax)
+        out = (om * torch.exp(os_ * z[1])).round().clamp(1, omax)
+        pos = (prompt + torch.rand(B, generator=gen) * out).long().clamp(max=Smax - 1)
+    pos[0], pos[min(1, B - 1)] = 0, Smax - 1
+    return pos
+
+
+def decode_bound(pos, Smax, H, K, D, window, itemsize=2):
+    """Least time (ms) for decode attention: the written slots' K and V read
+    once, one token's q.k and P.V over them on the FMA units (f32)."""
+    n = torch.clamp(pos + 1, max=min(Smax, window or Smax)).sum().item()
+    flops = 4 * n * (H // K) * K * D
+    return bound(flops / PEAK_F32_FLOPS * 1e3, 2 * n * K * D * itemsize / PEAK_BYTES * 1e3)
+
+
+def check_decode(gen, dev) -> dict:
+    """The decode kernel against decode_attention_ref in bf16 and f32 at
+    DECODE_CASES (and at forced chunk lengths, so both the split and the
+    single-chunk routes run), then timed in bf16 at DECODE_TIMED beside the
+    plain version, SDPA over the ring with the written slots as a mask, and
+    its bound; the main shape also at DECODE_CHUNKS."""
+    cgen = torch.Generator().manual_seed(0)
+    check = Cases("decode_attention")
+    timings = {}
+
+    def inputs(B, Smax, H, K, D, dt):
+        return (torch.randn((B, 1, H, D), generator=gen, device=dev).to(dt),
+                *(torch.randn((B, Smax, K, D), generator=gen, device=dev).to(dt)
+                  for _ in range(2)))
+
+    for name, B, Smax, H, K, D, window, mix in DECODE_CASES:
+        pos = decode_positions(B, Smax, mix, cgen).to(dev)
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = inputs(B, Smax, H, K, D, dt)
+            ref = decode_attention_ref(q, k, v, pos, window)
+            for chunk in (0, 64, Smax):
+                out = decode_attention_kernel(q, k, v, pos, window, _chunk_len=chunk)
+                torch.cuda.synchronize()
+                check.check(f"{name} B={B} Smax={Smax} H={H} K={K} D={D} w={window} "
+                            f"{str(dt)[6:]} chunk={chunk or 'rule'}", out, ref, DECODE_TOL[dt],
+                            key=(name, dt))
+    # one launch a call; the combine kernel only where the rule splits the ring
+    reset_counts()
+    decode_attention_kernel.combine_launches = 0
+    q, k, v = inputs(64, 4096, 32, 8, 128, torch.bfloat16)
+    decode_attention_kernel(q, k, v, torch.zeros(64, dtype=torch.long, device=dev))
+    split = decode_module.chunks(64, 8, 4096, 128, torch.bfloat16) > 1
+    if (read_counts() != {**NO_LAUNCHES, "decode_attention": 1}
+            or decode_attention_kernel.combine_launches != split):
+        fail(f"one decode call launched {read_counts()}, "
+             f"{decode_attention_kernel.combine_launches} combines")
+    check.report()
+
+    for name, B, Smax, H, K, D, window, mix in DECODE_TIMED:
+        pos = decode_positions(B, Smax, mix, cgen).to(dev)
+        q, k, v = inputs(B, Smax, H, K, D, torch.bfloat16)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        live = ((pos[:, None] % Smax - torch.arange(Smax, device=dev)[None, :]) % Smax
+                < torch.clamp(pos + 1, max=min(Smax, window or Smax))[:, None])
+        mask = live[:, None, None, :]
+        ms = time_ms(lambda: decode_attention_kernel(q, k, v, pos, window))
+        plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, pos, window), iters=5)
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        bound_ms, bound_by = decode_bound(pos, Smax, H, K, D, window)
+        n_chunks = decode_module.chunks(B, K, Smax, D, torch.bfloat16)
+        rec = dict(shape=f"bf16 {name} B={B} Smax={Smax} H={H} K={K} D={D}"
+                   + (f" w={window}" if window else "")
+                   + f" pos {pos.float().mean().item():.0f}, {n_chunks} chunks",
+                   ms=ms, old_ms=None, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   max_abs_err=check.errs[(name, torch.bfloat16)])
+        if (name, B) == DECODE_MAIN[:2]:
+            rec["by_chunk_ms"] = {str(c): time_ms(lambda: decode_attention_kernel(  # noqa: E731
+                q, k, v, pos, window, _chunk_len=c)) for c in DECODE_CHUNKS}
+        timings[name] = rec
+    t = timings[DECODE_MAIN[0]]
+    log(f"[kernels] decode_attention {t['shape'][5:]}: {t['ms']:.4f} ms "
+        f"({t['bound_ms'] / t['ms']:.1%} of the bound); by chunk length "
+        + ", ".join(f"{c} {ms:.4f}" for c, ms in t["by_chunk_ms"].items()))
+    return timings
+
+
 def phase_kernels(dev, old: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     at_phase(3, "kernels", "flash_attention")
@@ -1431,6 +1576,8 @@ def phase_kernels(dev, old: dict) -> dict:
                                         old.get("flash_attention_bwd"))
     at_phase(3, "kernels", "lru_scan gradient rule")
     recs["lru_grad"] = check_lru_grad(gen, dev)
+    at_phase(3, "kernels", "decode_attention")
+    recs["decode"] = check_decode(gen, dev)
     return recs
 
 
@@ -1803,7 +1950,8 @@ def phase_profile(serve: dict) -> None:
     busy_us = trace.busy_ms() * 1e3
     untraced_wall_us = serve["wall_s"] * 1e6
     port_us = {name: trace.matching_ms(pat) * 1e3
-               for name, pat in (("flash", r"flash_fwd\w*_kernel"), ("lru", LRU_KERNELS))}
+               for name, pat in (("flash", r"flash_fwd\w*_kernel"), ("lru", LRU_KERNELS),
+                                 ("decode", r"decode_attn\w*_kernel"))}
     per_call = []
     for span, t in trace.labels.items():
         if not t["calls"]:
@@ -2425,7 +2573,8 @@ def dynamic_smem() -> dict:
     ssd.repro_ssd_bf16_smem_bytes.restype = ctypes.c_longlong
     ssd.repro_ssd_bf16_state_smem_bytes.restype = ctypes.c_longlong
     bwd = flash_module._bwd_library().repro_flash_attention_bwd_smem_bytes
-    return {"flash_fwd_tc_kernel<128,128>": flash(128, 1),
+    decode = decode_module._library().repro_decode_attention_smem_bytes
+    return {"decode_attn_kernel<bf16,128,4>": decode(128, 4, 1),"flash_fwd_tc_kernel<128,128>": flash(128, 1),
             "flash_fwd_tc_kernel<256,256>": flash(256, 1),
             "flash_bwd_dkdv_tc_kernel<64,64>": bwd(64, 1),
             "flash_bwd_dkdv_tc_kernel<256,256>": bwd(256, 1),
@@ -2574,6 +2723,11 @@ def main() -> int:
         kernel's, the runs with attn_chunked."""
         if kernel == "flash_attention_bwd":
             return {name: r["launches"][kernel] for name, cfg, r in chunked}
+        if kernel == "decode_attention":          # the serving runs' decode steps
+            runs = [(f"{arch} serving", r["cfg"], r) for arch, r in serves.items()]
+            runs += [run for run in sharded if "serving" in run[0]]
+            return {name: r["launches"][kernel] for name, cfg, r in runs
+                    if set(DECODE_KINDS) & set(tfm.layer_kinds(cfg))}
         kinds = {"flash_attention": set(ATTENTION_KINDS), "lru_scan": {"rglru"},
                  "ssd_scan": {"ssm"}}[kernel]
         runs = [(f"{arch} serving", r["cfg"], r) for arch, r in serves.items()]
@@ -2597,6 +2751,9 @@ def main() -> int:
         record("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
                "src/repro/kernels/ssd/kernel.py:75", recs["ssd"], paths("ssd_scan"),
                flops=recs["ssd"]["flops"], bytes=recs["ssd"]["bytes"]),
+        record("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+               "none (the plain jnp decode attention of src/repro/models/attention.py:113-114)",
+               recs["decode"][DECODE_MAIN[0]], paths("decode_attention")),
     ]
     # each kernel's other timed shapes and its gradient rule's timings: in
     # the build record beside the registers, out of the kernels line
@@ -2606,7 +2763,9 @@ def main() -> int:
               "flash_attention_bwd": {"timings": recs["flash_bwd"][1:]},
               "lru_scan": {"timings": [t for S, t in recs["lru"].items() if S != 2500],
                            "gradient_rule": recs["lru_grad"]},
-              "ssd_scan": {"gradient_rule": recs["ssd_grad"]}}
+              "ssd_scan": {"gradient_rule": recs["ssd_grad"]},
+              "decode_attention": {"timings": [t for k, t in recs["decode"].items()
+                                               if k != DECODE_MAIN[0]]}}
     summary(built, recs, significant(_measured(detail)))
     log(f"[time] total {time.perf_counter() - T_START:.1f} s")
     log(nvidia_smi("name,power.limit"))

@@ -42,16 +42,20 @@ def _nvcc() -> str:
                        "the port's CUDA kernels are built from source on the card's host")
 
 
-def build_library(source: Path, build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
+def build_library(source: Path, build_dir: Path = BUILD_DIR,
+                  defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Compile ``source`` with ``nvcc`` (once per source hash) into
-    ``build_dir`` and load it.
+    ``build_dir`` and load it. ``defines`` (``-D`` flags) select a part of
+    the source to compile; they are hashed with the flags, so each
+    selection is its own library.
 
     The compiler's output (``-Xptxas -v``: registers, shared memory,
     spills) is kept beside the library as ``<name>.log``."""
     source, build_dir = Path(source), Path(build_dir)
+    flags = (*NVCC_FLAGS, *defines)
     headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     digest = hashlib.sha256(source.read_bytes() + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     lib = build_dir / f"lib{source.stem}-{digest}.so"
     with _locks_guard:
         lock = _locks.setdefault(lib, threading.Lock())
@@ -59,7 +63,7 @@ def build_library(source: Path, build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
         if not lib.exists():
             build_dir.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(source)],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {source.name} "

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import ParamSpec, apply_rope, rotary_embedding
 from repro_torch.parallel.sharding import index_put_local, reshape
@@ -104,13 +105,12 @@ def attn_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     x: (B, 1, D); cache_k/v: (B, Smax, K, Dh); pos: (B,) int (absolute
     position of each row's token — rows differ under continuous batching).
     Caches are rings indexed ``pos % Smax``; rope uses absolute positions.
-    Attention over the cache is plain PyTorch, as it is plain jnp in the
-    reference. Returns out (B, 1, D).
+    Attention over the cache is the op ``repro_torch::decode_attention``
+    (the reference's plain jnp on the CPU, a CUDA kernel that reads only the
+    written slots on the card). Returns out (B, 1, D).
     """
     B = x.shape[0]
-    Smax, K = cache_k.shape[1], cache_k.shape[2]
-    H, Dh = cfg.num_heads, cfg.head_dim
-    G = H // K
+    Smax, Dh = cache_k.shape[1], cfg.head_dim
     pos = pos.expand(B).long()
 
     q, k_new, v_new = _qkv(p, x, cfg)
@@ -123,16 +123,5 @@ def attn_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     index_put_local(cache_k, (rows, slot), k_new[:, 0])
     index_put_local(cache_v, (rows, slot), v_new[:, 0])
 
-    qf = reshape(q.float(), B, K, G, Dh)
-    s = torch.einsum("bkgd,btkd->bkgt", qf, cache_k.float()) * (Dh ** -0.5)
-    # slot j holds the token `age = (slot - j) mod Smax` steps in the past
-    idx = torch.arange(Smax, device=x.device)[None, :]
-    age = (slot[:, None] - idx) % Smax                      # (B, Smax); 0 = now
-    valid = age <= torch.clamp(pos, max=Smax - 1)[:, None]  # written yet?
-    if window is not None:
-        valid &= age < window
-    s = torch.where(valid[:, None, None, :], s,
-                    torch.full((), -1e30, device=x.device))
-    pattn = torch.softmax(s, dim=-1)
-    o = reshape(torch.einsum("bkgt,btkd->bkgd", pattn, cache_v.float()), B, 1, H, Dh)
-    return _proj_out(o.to(x.dtype), p["wo"])
+    o = decode_attention(q, cache_k, cache_v, pos, window=window)
+    return _proj_out(o, p["wo"])

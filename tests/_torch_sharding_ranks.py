@@ -13,6 +13,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import configs
 from repro_torch.data.pipeline import make_batch
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.ssd import ssd_with_state
 from repro_torch.models import model as M
 from repro_torch.parallel import sharding as shd
@@ -111,6 +112,45 @@ def scan_on_shards(mesh):
     return res
 
 
+# the decode cache's placements on the 2 x 2 mesh for the decode-attention
+# op: those of the op's sharding rule (replicate, batch, heads), and the
+# slots, which cache_pspecs picks where the kv heads do not split (the op then
+# combines the ranks' outputs by their log-sum-exps)
+DECODE_LAYOUTS = {"replicate": (Replicate(), Replicate()), "batch": (Shard(0), Replicate()),
+                  "heads": (Replicate(), Shard(2)), "batch-heads": (Shard(0), Shard(2)),
+                  "slots": (Replicate(), Shard(1)), "batch-slots": (Shard(0), Shard(1))}
+DECODE_WINDOWS = (None, 8)
+
+
+def decode_inputs():
+    """(q, cache_k, cache_v, pos) of the decode attention, seeded: B=4, a
+    ring of 24 slots, H=8 over K=2 kv heads, D=16; pos at the ring's start,
+    inside it, at its last slot and wrapped past it."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((4, 1, 8, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((4, 24, 2, 16)).astype(np.float32))
+            for _ in range(2))
+    return q, k, v, torch.tensor([0, 9, 23, 40])
+
+
+def decode_on_shards(mesh):
+    """The op with the cache placed by each of DECODE_LAYOUTS, with and
+    without a window (q and pos replicated): the output, gathered, and the
+    collectives it ran ({name: count})."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    res = {}
+    for name, layout in DECODE_LAYOUTS.items():
+        for window in DECODE_WINDOWS:
+            q, k, v, pos = decode_inputs()
+            args = [shd.place(q, (Replicate(),) * 2, mesh), shd.place(k, layout, mesh),
+                    shd.place(v, layout, mesh), shd.place(pos, (Replicate(),) * 2, mesh)]
+            with CommDebugMode() as comm:
+                o = decode_attention(*args, window=window)
+            res[(name, window)] = (shd.full(o).numpy(),
+                                   {str(op): n for op, n in comm.get_comm_counts().items()})
+    return res
+
+
 def _mesh(rank, init_file):
     from torch.distributed.device_mesh import init_device_mesh
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
@@ -146,8 +186,8 @@ def train_cases(rank, init_file, tmp, out, cases=TRAIN_CASES):
 
 def serve_and_checkpoint(rank, init_file, tmp, out):
     """granite-smoke served under tp2d and mamba2-smoke under baseline; the
-    prefill's SSD scan on shards; tiny-smoke trained under fsdp by
-    train_loop, checkpointed into ``tmp``/ckpt."""
+    prefill's SSD scan and the decode attention on shards; tiny-smoke
+    trained under fsdp by train_loop, checkpointed into ``tmp``/ckpt."""
     def body(mesh):
         cfg = smoke("granite-8b")
         tokens = serve(cfg, M.init_params(cfg, torch.Generator().manual_seed(0)), mesh,
@@ -156,8 +196,9 @@ def serve_and_checkpoint(rank, init_file, tmp, out):
         m2_tokens = serve(m2, M.init_params(m2, torch.Generator().manual_seed(0)), mesh,
                           shd.RULES["baseline"])
         scans = scan_on_shards(mesh)
+        decodes = decode_on_shards(mesh)
         train_loop(smoke("tiny"), steps=CKPT_STEPS, global_batch=B, seq_len=S,
                    ckpt_dir=f"{tmp}/ckpt", log_every=1, device="cpu", mesh=mesh,
                    rules=shd.RULES["fsdp"])
-        return {"serve": tokens, "serve_mamba2": m2_tokens, "scan": scans}
+        return {"serve": tokens, "serve_mamba2": m2_tokens, "scan": scans, "decode": decodes}
     _run(rank, init_file, out, body)

@@ -2,7 +2,8 @@
 runner threads of one process may launch a kernel for the first time
 together, so concurrent builds of one source must compile it once and load
 one whole library, and each kernel module's lazy ``_library()`` must build
-and bind once."""
+and bind once (the decode kernel's once per dtype and head_dim, each its own
+library, selected by ``-D`` flags)."""
 
 import sys
 import threading
@@ -16,7 +17,10 @@ import pytest
 pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+import torch  # noqa: E402
+
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as decode_module  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_module  # noqa: E402
 from repro_torch.kernels.rglru import kernel as lru_module  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_module  # noqa: E402
@@ -92,3 +96,45 @@ def test_lazy_library_is_built_and_bound_once_across_threads(monkeypatch, module
     libs = _together(module._library)
     assert calls == [module.SOURCE]
     assert all(lib is libs[0] for lib in libs)
+
+
+def test_defines_select_their_own_library(tmp_path, monkeypatch):
+    """``defines`` reach nvcc and are hashed into the library's name: two
+    selections of one source are two libraries, each compiled once."""
+    log = tmp_path / "calls.log"
+    stub = tmp_path / "nvcc"
+    stub.write_text(_STUB.format(python=sys.executable, log=str(log), so=_ctypes.__file__)
+                    .replace("f.write(out + ", "f.write(' '.join(sys.argv) + "))
+    stub.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(stub))
+    source = tmp_path / "kernel.cu"
+    source.write_text("// a source the stub never reads\n")
+    out = tmp_path / "build"
+    plain = build.build_library(source, out)
+    a = build.build_library(source, out, defines=("-DX=1",))
+    b = build.build_library(source, out, defines=("-DX=2",))
+    assert build.build_library(source, out, defines=("-DX=1",))._name == a._name
+    assert len({plain._name, a._name, b._name}) == 3
+    calls = log.read_text().splitlines()
+    assert len(calls) == 3 and ["-DX=1" in c for c in calls] == [False, True, False]
+    assert "-DX=2" in calls[2]
+
+
+def test_decode_library_is_built_once_per_dtype_and_head_dim(monkeypatch):
+    calls = []
+
+    def slow_build(source, defines=()):
+        calls.append((source, defines))
+        time.sleep(0.2)
+        return mock.MagicMock()
+
+    monkeypatch.setattr(decode_module, "build_library", slow_build)
+    monkeypatch.setattr(decode_module, "_libs", {})
+    monkeypatch.setattr(decode_module, "_locks", {})
+    keys = [(torch.bfloat16, 128), (torch.float32, 16)]
+    libs = _together(lambda: [decode_module._library(*k) for k in keys])
+    assert sorted(calls) == sorted([
+        (decode_module.SOURCE, ("-DREPRO_DECODE_BF16=1", "-DREPRO_DECODE_D=128")),
+        (decode_module.SOURCE, ("-DREPRO_DECODE_BF16=0", "-DREPRO_DECODE_D=16"))])
+    assert all(pair[0] is libs[0][0] and pair[1] is libs[0][1] for pair in libs)
+    assert libs[0][0] is not libs[0][1]

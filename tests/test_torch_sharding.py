@@ -23,7 +23,9 @@ updated params within 1e-4);
 granite-smoke served under tp2d and mamba2-smoke under baseline (greedy
 tokens equal); the mamba2 prefill's SSD scan with its final state on each
 rank's shards, in the batch and heads layouts and with a sequence shard
-(replicated), against the plain scan; and a checkpoint saved under fsdp on
+(replicated), against the plain scan; the decode attention with its cache
+replicated, over the batch, the heads and the ring's slots, against the
+plain version; and a checkpoint saved under fsdp on
 the four ranks, restored on one device.
 """
 
@@ -235,6 +237,24 @@ def test_prefill_scan_on_shards_matches_plain(serve_ckpt_results, layout):
     s_y, s_state = serve_ckpt_results["scan"][layout]
     np.testing.assert_allclose(s_y, y.numpy(), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(s_state, state.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("window", W.DECODE_WINDOWS)
+@pytest.mark.parametrize("layout", list(W.DECODE_LAYOUTS))
+def test_decode_attention_on_shards_matches_plain(serve_ckpt_results, layout, window):
+    """The op's rule layouts (replicate, batch, heads) equal the plain
+    version bit for bit; a cache sharded over its slots, combined across the
+    ranks by the log-sum-exps, within f32 rounding; no layout gathers the
+    cache (no all-gather runs)."""
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    ref = decode_attention_ref(*W.decode_inputs(), window).numpy()
+    out, comm = serve_ckpt_results["decode"][(layout, window)]
+    if "slots" in layout:
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(out, ref)
+        assert not comm
+    assert not any("all_gather" in op for op in comm)
 
 
 def test_fsdp_checkpoint_restores_on_one_device(serve_ckpt_results, tmp_path):
