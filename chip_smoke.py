@@ -225,6 +225,8 @@ try:
     from repro_torch.kernels.decode_attention import decode_attention_kernel, decode_attention_ref  # noqa: E402
     from repro_torch.kernels.decode_attention import kernel as decode_module  # noqa: E402
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention_kernel  # noqa: E402
+    from repro_torch.kernels.mla_decode import mla_decode_attention_ref, mla_decode_kernel  # noqa: E402
+    from repro_torch.kernels.mla_decode import kernel as mla_module  # noqa: E402
     from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel, flash_bwd_ref  # noqa: E402
     from repro_torch.kernels.flash_attention import kernel as flash_module  # noqa: E402
     from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
@@ -382,6 +384,7 @@ def leaves(tree, prefix=""):
 
 def reset_counts() -> None:
     decode_attention_kernel.launches = 0
+    mla_decode_kernel.launches = 0
     flash_attention_kernel.launches = 0
     flash_attention_bwd_kernel.launches = 0
     lru_scan_kernel.launches = 0
@@ -393,15 +396,16 @@ def read_counts() -> dict:
             "flash_attention_bwd": flash_attention_bwd_kernel.launches,
             "lru_scan": lru_scan_kernel.launches,
             "ssd_scan": ssd_kernel.launches,
-            "decode_attention": decode_attention_kernel.launches}
+            "decode_attention": decode_attention_kernel.launches,
+            "mla_decode_attention": mla_decode_kernel.launches}
 
 
 NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "lru_scan": 0, "ssd_scan": 0,
-               "decode_attention": 0}
+               "decode_attention": 0, "mla_decode_attention": 0}
 
 
 SHORT = {"flash_attention": "flash", "flash_attention_bwd": "flash_bwd", "lru_scan": "lru",
-         "ssd_scan": "ssd", "decode_attention": "decode"}
+         "ssd_scan": "ssd", "decode_attention": "decode", "mla_decode_attention": "mla"}
 
 
 def counts_str(counts: dict) -> str:
@@ -415,10 +419,11 @@ ATTENTION_KINDS = ("attn", "local_attn", "enc_attn", "cross")
 
 def _flash_per_pass(cfg) -> int:
     """Flash launches in one pass over the sequence: one per attention layer
-    (``attn``, ``local_attn``), two per ``cross`` layer (its self-attention
-    and its cross-attention) and one per encoder layer."""
+    (``attn``, ``local_attn``, an MLA layer), two per ``cross`` layer (its
+    self-attention and its cross-attention) and one per encoder layer."""
     kinds = tfm.layer_kinds(cfg)
-    return (sum(k in ("attn", "local_attn") for k in kinds) + 2 * kinds.count("cross")
+    return (sum(k in ("attn", "local_attn", *tfm.MLA_KINDS) for k in kinds)
+            + 2 * kinds.count("cross")
             + len(tfm.layer_kinds(cfg, encoder=True)))
 
 
@@ -439,11 +444,13 @@ DECODE_KINDS = ("attn", "local_attn", "cross")
 def launches_per_decode(cfg) -> dict:
     """A decode step attends over its cache with the decode kernel, one
     launch per self-attention (``attn``, ``local_attn`` and a ``cross``
-    layer's self-attention), and a ``cross`` layer's cross-attention over the
-    encoder's K/V with flash: one launch (Sq = 1) per cross layer."""
+    layer's self-attention), or the latent decode kernel per MLA layer, and
+    a ``cross`` layer's cross-attention over the encoder's K/V with flash:
+    one launch (Sq = 1) per cross layer."""
     kinds = tfm.layer_kinds(cfg)
     return {**NO_LAUNCHES, "flash_attention": kinds.count("cross"),
-            "decode_attention": sum(k in DECODE_KINDS for k in kinds)}
+            "decode_attention": sum(k in DECODE_KINDS for k in kinds),
+            "mla_decode_attention": sum(k in tfm.MLA_KINDS for k in kinds)}
 
 
 def launches_per_train_step(cfg, microbatches: int = 1) -> dict:
@@ -486,7 +493,8 @@ KERNEL_SOURCES = {"flash_attention": (flash_module.SOURCE, flash_module._library
                   "flash_attention_bwd": (flash_module.SOURCE_BWD, flash_module._bwd_library),
                   "lru_scan": (lru_module.SOURCE, lru_module._library),
                   "ssd_scan": (ssd_module.SOURCE, ssd_module._library),
-                  "decode_attention": (decode_module.SOURCE, decode_module._library)}
+                  "decode_attention": (decode_module.SOURCE, decode_module._library),
+                  "mla_decode_attention": (mla_module.SOURCE, mla_module._library)}
 OLD_BUILD_DIR = build.BUILD_DIR / "old"
 
 
@@ -569,6 +577,9 @@ def phase_build(old_src: Path | None) -> dict:
         for D in decode_module.HEAD_DIMS:
             jobs.setdefault(f"decode_attention {str(dt)[6:]} D={D}",
                             lambda dt=dt, D=D: decode_module._library(dt, D))
+        for C, R in MLA_WIDTHS:                  # the latent decode kernel's
+            jobs.setdefault(f"mla_decode_attention {str(dt)[6:]} C={C} R={R}",
+                            lambda dt=dt, C=C, R=R: mla_module._library(dt, C, R))
     if old_src is not None:
         old = [name for name in KERNEL_SOURCES if (old_src / f"{name}.cu").exists()]
         if not old:
@@ -693,10 +704,10 @@ class Cases:
             fail(f"{self.name} disagrees with its plain version at {label}")
         return err
 
-    def report(self) -> None:
+    def report(self, more: str = "") -> None:
         worst = (f"worst err/limit {self.worst[0]:.3f} at {self.worst[1]}" if self.worst[1]
                  else "all equal to the plain version")
-        log(f"[kernels] {self.name}: {self.n} cases ok, {worst}")
+        log(f"[kernels] {self.name}: {self.n} cases ok, {worst}{more}")
 
 
 # The flash shapes of the vlm and audio paths, (B, Sq, Sk, H, K, D) and
@@ -1526,7 +1537,6 @@ def check_decode(gen, dev) -> dict:
             or decode_attention_kernel.combine_launches != split):
         fail(f"one decode call launched {read_counts()}, "
              f"{decode_attention_kernel.combine_launches} combines")
-    check.report()
 
     for name, B, Smax, H, K, D, window, mix in DECODE_TIMED:
         pos = decode_positions(B, Smax, mix, cgen).to(dev)
@@ -1552,10 +1562,132 @@ def check_decode(gen, dev) -> dict:
                 q, k, v, pos, window, _chunk_len=c)) for c in DECODE_CHUNKS}
         timings[name] = rec
     t = timings[DECODE_MAIN[0]]
-    log(f"[kernels] decode_attention {t['shape'][5:]}: {t['ms']:.4f} ms "
-        f"({t['bound_ms'] / t['ms']:.1%} of the bound); by chunk length "
-        + ", ".join(f"{c} {ms:.4f}" for c, ms in t["by_chunk_ms"].items()))
+    check.report(f"; {t['shape'][5:]}: {t['ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%} of the "
+                 "bound); by chunk length "
+                 + ", ".join(f"{c} {ms:.4f}" for c, ms in t["by_chunk_ms"].items()))
     return timings
+
+
+# The latent (MLA) decode kernel against mla_decode_attention_ref, held to
+# DECODE_TOL: in bf16 its scores are exact products summed in f32 and its
+# weights carry about 16 bits (two bf16 terms), so the output differs from
+# the f32 reference's by its one rounding; f32 by summation order.
+LONGCHAT = ((4096, 0.6, 7680), (256, 0.8, 512))   # gpubench's longchat mix
+MLA_WIDTHS = ((512, 64), (32, 16))                # (C, R): Moonlight, its smoke
+# (name, B, S, H, C, R, mix); the first is the cell's shape, timed
+MLA_MAIN = ("moonlight longchat", 128, 8192, 16, 512, 64, LONGCHAT)
+MLA_CASES = [MLA_MAIN,
+             ("moonlight 4 rows", 4, 8192, 16, 512, 64, "uniform"),
+             ("moonlight H=8 ring", 8, 1024, 8, 512, 64, "wrapped"),
+             ("moonlight-smoke", 4, 96, 4, 32, 16, "wrapped")]
+
+
+def mla_bound(pos, S, H, C, R, itemsize=2):
+    """Least time (ms) of the latent decode: the written slots read once
+    (C + R values each) beside q and the output, and 2 H (C + R + C)
+    operations a slot on the tensor cores."""
+    n = torch.clamp(pos + 1, max=S).sum().item()
+    B = pos.numel()
+    nbytes = itemsize * (n * (C + R) + B * H * (2 * C + R))
+    return bound(2 * H * (2 * C + R) * n / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3)
+
+
+def check_mla_decode(gen, dev) -> dict:
+    """The latent decode kernel against its plain version in bf16 and f32
+    at MLA_CASES (at the rule's chunk length, at 64 slots and unsplit), one
+    launch a call, then timed in bf16 at MLA_MAIN beside the plain version
+    and its bound; one line."""
+    cgen = torch.Generator().manual_seed(1)
+    check = Cases("mla_decode_attention")
+    for name, B, S, H, C, R, mix in MLA_CASES:
+        pos = decode_positions(B, S, mix, cgen).to(dev)
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, 1, H, C + R), generator=gen, device=dev).to(dt)
+            cache = torch.randn((B, S, C + R), generator=gen, device=dev).to(dt)
+            scale = (C // 4 + R) ** -0.5
+            ref = mla_decode_attention_ref(q, cache, pos, C, scale)
+            for chunk in (0, 64, S):
+                out = mla_decode_kernel(q, cache, pos, C, scale, _chunk_len=chunk)
+                torch.cuda.synchronize()
+                check.check(f"{name} B={B} S={S} H={H} C={C} R={R} {str(dt)[6:]} "
+                            f"chunk={chunk or 'rule'}", out, ref, DECODE_TOL[dt], key=(name, dt))
+            del q, cache, ref, out
+    name, B, S, H, C, R, mix = MLA_MAIN
+    pos = decode_positions(B, S, mix, cgen).to(dev)
+    q = torch.randn((B, 1, H, C + R), generator=gen, device=dev).to(torch.bfloat16)
+    cache = torch.randn((B, S, C + R), generator=gen, device=dev).to(torch.bfloat16)
+    reset_counts()
+    mla_decode_kernel.combine_launches = 0
+    mla_decode_kernel(q, cache, pos, C, 0.1)
+    split = mla_module.chunks(B, S, torch.bfloat16, C, R) > 1
+    if (read_counts() != {**NO_LAUNCHES, "mla_decode_attention": 1}
+            or mla_decode_kernel.combine_launches != split):
+        fail(f"one latent decode call launched {read_counts()}, "
+             f"{mla_decode_kernel.combine_launches} combines")
+    ms = time_ms(lambda: mla_decode_kernel(q, cache, pos, C, 0.1))
+    plain_ms = time_ms(lambda: mla_decode_attention_ref(q, cache, pos, C, 0.1), iters=3)
+    bound_ms, bound_by = mla_bound(pos, S, H, C, R)
+    rec = dict(shape=f"bf16 {name} B={B} S={S} H={H} C={C} R={R} pos "
+               f"{pos.float().mean().item():.0f}, {mla_module.chunks(B, S, torch.bfloat16, C, R)}"
+               " chunks", ms=ms, old_ms=None, plain_ms=plain_ms, library_ms=None,
+               bound_ms=bound_ms, bound_by=bound_by,
+               max_abs_err=check.errs[(name, torch.bfloat16)])
+    check.report(f"; the cell's shape (pos mean {pos.float().mean().item():.0f}, "
+                 f"{mla_module.chunks(B, S, torch.bfloat16, C, R)} chunks): {ms:.4f} ms "
+                 f"({bound_ms / ms:.1%} of the {bound_by} bound {bound_ms:.4f}), plain {plain_ms:.2f}")
+    return {name: rec}
+
+
+# The routed experts' op (repro_torch::moe_experts) at the longchat cell's
+# shapes, (name, tokens): a prefill of 4,096 tokens and a decode step of 128
+# rows, 6 of Moonlight's 64 experts (2048 -> 1408 -> 2048) a token, experts 0
+# and 17 given no rows.
+MOE_CASES = (("prefill", 4096), ("decode", 128))
+# bf16 on the card (three grouped GEMMs) against experts_loop in f32 on the
+# same bf16 inputs, per sorted row as ||out - ref|| / ||ref||: the bf16 route
+# rounds gate, up, the SiLU, the product and the output once each (at most
+# 2^-8 of a value), and a row's error averages over its 2048 values, so it
+# reads about 1.3 x 2^-8; the limit is 2^-7, bf16's epsilon. A row that meets
+# a wrong expert, or lands in another row's place, reads about 1.4.
+MOE_ROW_REL = 2.0 ** -7
+
+
+def check_moe_experts(gen, dev) -> dict:
+    """moe_experts in bf16 on the card against experts_loop in f32 at
+    MOE_CASES, with the rows sorted by expert as moe_dropless sorts them,
+    each timed beside its bound (the touched experts' weights read once, or
+    their operations on the tensor cores); one line."""
+    E, D, F, k = 64, 2048, 1408, 6
+    w16 = [(torch.randn(shape, generator=gen, device=dev) * shape[1] ** -0.5).to(torch.bfloat16)
+           for shape in ((E, D, F), (E, D, F), (E, F, D))]
+    w32 = [w.float() for w in w16]
+    recs, parts = {}, []
+    for name, T in MOE_CASES:
+        logits = torch.randn((T, E), generator=gen, device=dev)
+        logits[:, [0, 17]] = -math.inf
+        sel = torch.topk(logits, k, dim=-1).indices
+        order, offs = moe_mod.dispatch_order(sel, E)
+        xt = torch.randn((T, D), generator=gen, device=dev).to(torch.bfloat16)
+        x = xt[order // k]
+        out = moe_mod.moe_experts(x, offs, *w16)
+        ref = moe_mod.experts_loop(x.float(), offs, *w32)
+        torch.cuda.synchronize()
+        rel = ((out.float() - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+        if out.dtype != torch.bfloat16 or rel > MOE_ROW_REL:
+            fail(f"moe_experts {name} {T} x {k}: {out.dtype}, worst row {rel:.3e} of its norm "
+                 f"(limit {MOE_ROW_REL:.3e})")
+        ms = time_ms(lambda: moe_mod.moe_experts(x, offs, *w16))
+        touched = int((torch.diff(offs, prepend=offs.new_zeros(1)) > 0).sum())
+        bound_ms, bound_by = bound(2 * 3 * T * k * D * F / PEAK_BF16_FLOPS * 1e3,
+                                   2 * (3 * touched * D * F + 2 * T * k * D) / PEAK_BYTES * 1e3)
+        recs[name] = dict(shape=f"bf16 {name} {T} x {k} of {E}, D={D} F={F}", ms=ms,
+                          bound_ms=bound_ms, bound_by=bound_by, max_row_rel=rel)
+        parts.append(f"{name} {T}x{k} {rel / MOE_ROW_REL:.3f}, {ms:.4f} ms "
+                     f"({bound_ms / ms:.1%} of the {bound_by} bound)")
+        del x, xt, out, ref
+    log("[kernels] moe_experts bf16 vs experts_loop f32, worst row over its limit 2^-7 "
+        "(experts 0, 17 empty): " + "; ".join(parts))
+    return recs
 
 
 def phase_kernels(dev, old: dict) -> dict:
@@ -1578,6 +1710,10 @@ def phase_kernels(dev, old: dict) -> dict:
     recs["lru_grad"] = check_lru_grad(gen, dev)
     at_phase(3, "kernels", "decode_attention")
     recs["decode"] = check_decode(gen, dev)
+    at_phase(3, "kernels", "mla_decode_attention")
+    recs["mla_decode"] = check_mla_decode(gen, dev)
+    at_phase(3, "kernels", "moe_experts")
+    recs["moe_experts"] = check_moe_experts(gen, dev)
     return recs
 
 
@@ -1642,7 +1778,11 @@ def compare_routes(name: str, cpu: Routes, card: Routes) -> tuple[str, bool]:
 
 
 def _maybe_routes(cfg):
-    return Routes(cfg) if cfg.num_experts else contextlib.nullcontext()
+    """Routes of the softmax router's capacity path; a sigmoid router's
+    dropless path is held by its logits alone."""
+    if cfg.num_experts and cfg.router_scoring == "softmax":
+        return Routes(cfg)
+    return contextlib.nullcontext()
 
 
 def model_check(dev, cfg, B: int, S: int, pos: list[int], max_len: int) -> str:
@@ -1686,7 +1826,7 @@ def model_check(dev, cfg, B: int, S: int, pos: list[int], max_len: int) -> str:
     part = (f"{cfg.name} {worst:.1e} ({len(cpu) - 2} leaves, {counts_str(launches)}"
             + (f"; decode {counts_str(decode)})" if decode != NO_LAUNCHES else ")"))
     tie = False
-    if cfg.num_experts:
+    if cfg.num_experts and cfg.router_scoring == "softmax":
         report, tie = compare_routes(cfg.name, routes["cpu"], routes[str(dev)])
         if sum(d for *_, d in routes["cpu"].calls) == 0:
             fail(f"{cfg.name}: the prompt of {S} dropped no token; the check needs drops")
@@ -1749,7 +1889,7 @@ def train_check(dev, arch: str, steps: int) -> str:
             f"{(card_curve - cpu_curve).abs().max().item():.1e} "
             f"({counts_str(counts[str(dev)][0])})")
     tie = False
-    if cfg.num_experts:
+    if cfg.num_experts and cfg.router_scoring == "softmax":
         report, tie = compare_routes(cfg.name, routes["cpu"], routes[str(dev)])
         part += f" [{report}]"
     if not tie and not all(torch.allclose(card_one[k], cpu_one[k], **MODEL_TOL) for k in cpu_one):
@@ -1788,6 +1928,7 @@ MODEL_CHECKS = [
     (configs.get_smoke("llama3-405b"), 2, 45, [45, 33], 64),
     (configs.get_smoke("mixtral-8x22b"), 2, 45, [45, 33], 64),
     (configs.get_smoke("moonshot-v1-16b-a3b"), 2, 45, [45, 33], 64),
+    (configs.get_smoke("moonlight-16b-a3b"), 2, 45, [45, 33], 64),
     (configs.get_smoke("internvl2-26b"), 2, 37, [45, 38], 64),
     (configs.get_smoke("seamless-m4t-large-v2"), 2, 37, [37, 30], 64),
 ]
@@ -2765,7 +2906,9 @@ def main() -> int:
                            "gradient_rule": recs["lru_grad"]},
               "ssd_scan": {"gradient_rule": recs["ssd_grad"]},
               "decode_attention": {"timings": [t for k, t in recs["decode"].items()
-                                               if k != DECODE_MAIN[0]]}}
+                                               if k != DECODE_MAIN[0]]},
+              # the latent kernel's record: its line in phase 3 has the time and bound
+              "mla_decode_attention": {"timings": list(recs["mla_decode"].values())}}
     summary(built, recs, significant(_measured(detail)))
     log(f"[time] total {time.perf_counter() - T_START:.1f} s")
     log(nvidia_smi("name,power.limit"))

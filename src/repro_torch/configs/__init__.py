@@ -8,7 +8,8 @@ reference is listed; any other name raises ``NotImplementedError``.
 from __future__ import annotations
 
 from repro_torch.configs import (granite_8b, internvl2_26b, llama3_405b, mamba2_130m,
-                                 mistral_nemo_12b, mixtral_8x22b, moonshot_v1_16b_a3b,
+                                 mistral_nemo_12b, mixtral_8x22b, moonlight_16b_a3b,
+                                 moonshot_v1_16b_a3b,
                                  qwen2_5_14b, recurrentgemma_2b, seamless_m4t_large_v2, tiny)
 from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig, cell_supported,
                                       shape_for)
@@ -16,7 +17,8 @@ from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig, cell_sup
 _MODULES = {"granite-8b": granite_8b, "internvl2-26b": internvl2_26b,
             "llama3-405b": llama3_405b,
             "mamba2-130m": mamba2_130m, "mistral-nemo-12b": mistral_nemo_12b,
-            "mixtral-8x22b": mixtral_8x22b, "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
+            "mixtral-8x22b": mixtral_8x22b, "moonlight-16b-a3b": moonlight_16b_a3b,
+            "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
             "qwen2.5-14b": qwen2_5_14b, "recurrentgemma-2b": recurrentgemma_2b,
             "seamless-m4t-large-v2": seamless_m4t_large_v2, "tiny": tiny}
 ARCHS = sorted(_MODULES)

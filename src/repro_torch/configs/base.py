@@ -29,7 +29,7 @@ class ModelConfig:
     head_dim: int = 0               # 0 → d_model // num_heads
 
     # attention
-    attention: str = "full"         # full | swa | none
+    attention: str = "full"         # full | swa | none | mla (latent attention)
     window: int = 4096              # sliding window (attention == "swa" / local)
     qkv_bias: bool = False
     attn_chunked: bool = False      # blockwise online-softmax (XLA flash):
@@ -43,6 +43,17 @@ class ModelConfig:
     moe_d_ff: int = 0
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
+    # DeepSeek-V3-style MoE (all off by default: softmax router, capacity drops)
+    router_scoring: str = "softmax"  # softmax (capacity dispatch) | sigmoid (dropless)
+    routed_scaling: float = 1.0     # sigmoid: renormalised top-k weights times this
+    num_shared_experts: int = 0     # one SwiGLU of num_shared_experts * moe_d_ff, every token
+    first_dense_layers: int = 0     # an MLA model's leading layers with a dense d_ff MLP
+
+    # multi-head latent attention (attention == "mla"; no q LoRA)
+    kv_lora_rank: int = 0           # the cached latent's width
+    qk_nope_head_dim: int = 0       # per-head q/k width without rope
+    qk_rope_head_dim: int = 0       # rope width, q per head and one k shared by the heads
+    v_head_dim: int = 0
 
     # SSM (mamba2 / SSD)
     ssm_state: int = 0

@@ -7,6 +7,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --full
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch moonshot-v1-16b-a3b --full --max-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch moonlight-16b-a3b --full --max-len 8192 --max-batch 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \\
         --full --max-len 1024
@@ -16,7 +18,8 @@
 Runs on the CUDA card by default, with weights made on the card from
 ``--seed`` in the config's dtype (bf16 for the served archs; ``--full`` is
 the published width, otherwise the smoke width). One card holds
-moonshot-v1-16b-a3b (52.3 GiB of bf16 weights), qwen2.5-14b and
+moonshot-v1-16b-a3b (52.3 GiB of bf16 weights), moonlight-16b-a3b (29.8
+GiB; its latent cache is 31,104 bytes a token), qwen2.5-14b and
 mistral-nemo-12b at full width, and internvl2-26b (37.0 GiB; each prompt
 follows 256 zero vision embeddings, so give it ``--max-len`` room for them)
 and seamless-m4t-large-v2 (its encoder runs over 1024 zero speech-frame

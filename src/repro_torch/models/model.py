@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import ParamSpec, init_tree, rms_norm, take_embedding
 from repro_torch.models.rglru import rglru_cache_shapes
@@ -39,7 +40,7 @@ from repro_torch.parallel.ctx import constrain_logical, gather_for_compute
 
 __all__ = ["param_shapes", "init_params", "forward", "loss_fn", "cache_shapes",
            "init_cache", "prefill", "decode_step", "compute_dtype", "uniform_scan",
-           "FRONTEND_KEYS"]
+           "FRONTEND_KEYS", "attended_slot_bytes"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # The batch key of each family's precomputed frontend embeddings (B, F, D).
@@ -185,6 +186,8 @@ def _layer_cache_shapes(cfg, kind: str, batch: int, max_len: int, dtype) -> dict
         return ssm_cache_shapes(cfg, batch, dtype)
     if kind == "rglru":
         return rglru_cache_shapes(cfg, batch, dtype)
+    if kind in tfm.MLA_KINDS:
+        return {"ckv": ((batch, max_len, mla_mod.slot_width(cfg)), dtype)}
     slots = max_len
     if kind == "local_attn" or cfg.attention == "swa":
         slots = min(cfg.window, max_len)
@@ -208,6 +211,31 @@ def cache_shapes(cfg, batch: int, max_len: int) -> dict:
                            for k, (shape, dt) in per.items()}}
     return {"layers": {f"layer_{i}": _layer_cache_shapes(cfg, k, batch, max_len, dtype)
                        for i, k in enumerate(kinds)}}
+
+
+def attended_slot_bytes(cfg, max_len: int) -> dict[int, int]:
+    """What one decode step's attention reads of a row's cache, summed over
+    the layers: {cap: bytes a written slot holds}, where a row at position
+    ``pos`` has min(pos + 1, cap) written slots under that cap (``max_len``,
+    or a sliding window's slot count), and cap 0 holds bytes read whatever
+    the position (a cross-attention's encoder K/V, ``frontend_tokens``
+    slots). Per layer kind: K and V of the kv heads (GQA), the latent and
+    rope values (MLA); the recurrent mixers read no slots."""
+    item = torch.finfo(compute_dtype(cfg)).bits // 8
+    out: dict[int, int] = {}
+    for kind in tfm.layer_kinds(cfg):
+        if kind in ("ssm", "rglru"):
+            continue
+        if kind in tfm.MLA_KINDS:
+            out[max_len] = out.get(max_len, 0) + mla_mod.slot_width(cfg) * item
+            continue
+        kv = 2 * cfg.num_kv_heads * cfg.head_dim * item
+        cap = min(cfg.window, max_len) if kind == "local_attn" or cfg.attention == "swa" \
+            else max_len
+        out[cap] = out.get(cap, 0) + kv
+        if kind == "cross":
+            out[0] = out.get(0, 0) + kv * cfg.frontend_tokens
+    return out
 
 
 def _zeros(tree, device):

@@ -10,6 +10,9 @@ One block type per layer kind, as in the reference:
   enc_attn    bidirectional self-attention (encoder) + FFN
   cross       causal self-attention + cross-attention over the encoder's
               output + FFN (decoder of an encoder-decoder)
+  mla_dense   multi-head latent attention (``attention == "mla"``) + FFN:
+              the ``first_dense_layers`` leading layers of such a model
+  mla_moe     multi-head latent attention + MoE (the layers after those)
 Each kind has its training forward, prefill and decode, except
 ``enc_attn``: the encoder runs through the full-sequence block only (once a
 prefill) and keeps no cache of its own. The FFN is SwiGLU, or a tanh-gelu
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
@@ -38,7 +42,8 @@ __all__ = ["layer_kinds", "mlp_specs", "block_specs", "resid", "mlp_apply",
            "block_apply", "block_prefill", "block_decode"]
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-_KINDS = ("attn", "local_attn", "rglru", "ssm", "enc_attn", "cross")
+_KINDS = ("attn", "local_attn", "rglru", "ssm", "enc_attn", "cross", "mla_dense", "mla_moe")
+MLA_KINDS = ("mla_dense", "mla_moe")
 
 
 def layer_kinds(cfg, *, encoder: bool = False) -> list[str]:
@@ -55,6 +60,9 @@ def layer_kinds(cfg, *, encoder: bool = False) -> list[str]:
         return [pat[i % len(pat)] for i in range(cfg.num_layers)]
     if cfg.is_encdec:
         return ["cross"] * cfg.num_layers
+    if cfg.attention == "mla":
+        dense = cfg.num_layers if cfg.num_experts == 0 else cfg.first_dense_layers
+        return ["mla_dense"] * dense + ["mla_moe"] * (cfg.num_layers - dense)
     return ["attn"] * cfg.num_layers
 
 
@@ -79,6 +87,8 @@ def block_specs(cfg, kind: str) -> dict:
         return s                                     # mamba block: mixer only
     if kind == "rglru":
         s.update(rglru_mod.rglru_specs(cfg))
+    elif kind in MLA_KINDS:
+        s.update(mla_mod.mla_specs(cfg))
     else:
         s.update(attn.attn_specs(cfg))
     if kind == "cross":
@@ -111,7 +121,7 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def _is_moe(cfg, kind: str) -> bool:
-    return cfg.num_experts > 0 and kind in ("attn", "local_attn")
+    return cfg.num_experts > 0 and kind in ("attn", "local_attn", "mla_moe")
 
 
 def _ffn(p: dict, x: torch.Tensor, cfg, kind: str):
@@ -146,6 +156,8 @@ def block_apply(p: dict, x: torch.Tensor, cfg, kind: str, *, memory=None):
         return resid(x + ssm_mod.ssm_apply(p, h, cfg)), 0.0
     if kind == "rglru":
         x = resid(x + rglru_mod.rglru_apply(p, h, cfg))
+    elif kind in MLA_KINDS:
+        x = resid(x + mla_mod.mla_apply(p, h, cfg)[0])
     else:
         x = resid(x + attn.attn_apply(p, h, cfg, causal=kind != "enc_attn",
                                       window=_window_for(cfg, kind))[0])
@@ -169,6 +181,9 @@ def block_prefill(p: dict, x: torch.Tensor, cfg, kind: str, max_len: int, *,
     if kind == "rglru":
         out, cache = _rglru_prefill(p, h, cfg)
         return _ffn(p, resid(x + out), cfg, kind)[0], cache
+    if kind in MLA_KINDS:
+        out, rows = mla_mod.mla_apply(p, h, cfg)
+        return _ffn(p, resid(x + out), cfg, kind)[0], {"ckv": _rows_to_cache(rows, max_len)}
     window = _window_for(cfg, kind)
     out, (k, v) = attn.attn_apply(p, h, cfg, window=window)
     x = resid(x + out)
@@ -178,6 +193,15 @@ def block_prefill(p: dict, x: torch.Tensor, cfg, kind: str, max_len: int, *,
         x = _cross(p, x, (mk, mv), cfg)
         cache.update(enc_k=mk, enc_v=mv)
     return _ffn(p, x, cfg, kind)[0], cache
+
+
+def _rows_to_cache(rows: torch.Tensor, slots: int) -> torch.Tensor:
+    """Lay the prefill's latent rows (B, S, C + R) into ``slots`` positions:
+    zero-padded, or, past ``slots``, the last ``slots`` rolled into ring phase."""
+    S = rows.shape[1]
+    if S >= slots:
+        return torch.roll(rows[:, -slots:], S % slots, dims=1)
+    return shd.pad(rows, (0, 0, 0, slots - S))
 
 
 def _kv_to_cache(k: torch.Tensor, v: torch.Tensor, slots: int) -> dict:
@@ -226,13 +250,16 @@ def _rglru_prefill(p: dict, h: torch.Tensor, cfg):
 def block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                  cfg, kind: str) -> torch.Tensor:
     """One-token step. x: (B, 1, D); ``cache`` (this layer's {"k", "v"}
-    (and {"enc_k", "enc_v"}, read only, for a ``cross`` block), {"conv",
-    "h"} or {"conv", "state"}) is updated in place. Returns x."""
+    (and {"enc_k", "enc_v"}, read only, for a ``cross`` block), {"ckv"} (the
+    latent slots of an MLA block), {"conv", "h"} or {"conv", "state"}) is
+    updated in place. Returns x."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if kind == "ssm":
         return resid(x + ssm_mod.ssm_decode(p, h, cache, cfg))
     if kind == "rglru":
         x = resid(x + rglru_mod.rglru_decode(p, h, cache, cfg))
+    elif kind in MLA_KINDS:
+        x = resid(x + mla_mod.mla_decode(p, h, cache["ckv"], pos, cfg))
     else:
         x = resid(x + attn.attn_decode(p, h, cache["k"], cache["v"], pos, cfg,
                                        window=_window_for(cfg, kind)))

@@ -159,7 +159,10 @@ def cache_pspecs(cache_shape_tree, rules: dict, mesh, cfg):
     """Specs of a decode cache ({name: (shape, dtype)} leaves): the batch dim
     over the DP axes when divisible; then a kv-head or SSM-head dim over
     `model` when divisible, else (GQA with fewer kv heads than the axis)
-    the sequence-slots dim: the standard sequence-sharded KV cache."""
+    the sequence-slots dim: the standard sequence-sharded KV cache. An MLA
+    layer's latent slots (B, S, C + R) take the batch split only: every head
+    reads every value of a slot, and the latent decode op runs on whole
+    rows."""
     sizes = mesh_sizes(mesh)
     dp = tuple(rules["batch"])
     dp_n = math.prod(sizes[a] for a in dp)
@@ -171,6 +174,9 @@ def cache_pspecs(cache_shape_tree, rules: dict, mesh, cfg):
         bdim = 1 if len(shape) >= 2 and shape[0] == cfg.num_layers else 0
         if shape[bdim] % dp_n == 0:
             entries[bdim] = _entry(dp)
+        if cfg.attention == "mla" and len(shape) == bdim + 3 and \
+                shape[-1] == cfg.kv_lora_rank + cfg.qk_rope_head_dim:
+            return _trim(entries)
         placed = False
         for i in range(bdim + 2, len(shape)):
             if shape[i] in (cfg.num_kv_heads, cfg.ssm_heads) and shape[i] % model_n == 0:

@@ -76,6 +76,7 @@ class ServeEngine:
         self.prefill = make_prefill_step(cfg, max_len=max_len, mesh=mesh, rules=rules)
         self.decode = make_serve_step(cfg, mesh=mesh, rules=rules)
         self.cache = init_cache(cfg, max_batch, max_len, self.device, mesh=mesh, rules=rules)
+        self._slot_bytes = M.attended_slot_bytes(cfg, max_len)
         self.slots = [_Slot() for _ in range(max_batch)]
         self.queue: list[Request] = []
         self.requests: dict[int, Request] = {}
@@ -97,8 +98,10 @@ class ServeEngine:
     def _splice(self, row_cache: dict, b: int) -> None:
         """Copy a batch-1 prefill cache into cache row ``b``. Under
         ``cache["layers"]`` a tensor is a stacked (L, B, ...) leaf; a dict is
-        one unrolled layer, whose leaves are (B, ...). A sharded leaf is
-        written on each rank's shard (``index_put_local``)."""
+        one unrolled layer, whose leaves are (B, ...): K/V, conv and state
+        leaves, or an MLA layer's latent slots (``ckv``, (B, max_len, C +
+        R)), all alike. A sharded leaf is written on each rank's shard
+        (``index_put_local``)."""
         rows = torch.tensor([b], device=self.device)
         with torch.no_grad():
             for name, full in self.cache["layers"].items():
@@ -152,13 +155,15 @@ class ServeEngine:
         """One decode step over every active slot."""
         tokens = np.zeros((self.max_batch, 1), np.int64)
         pos = np.zeros((self.max_batch,), np.int64)
-        active = contexts = 0
+        active = contexts = cache_bytes = 0
         for i, slot in enumerate(self.slots):
             if slot.active:
                 tokens[i, 0] = self.requests[slot.rid].generated[-1]
                 pos[i] = slot.pos
                 active += 1
                 contexts += slot.pos + 1
+                cache_bytes += sum(n * (min(slot.pos + 1, cap) if cap else 1)
+                                   for cap, n in self._slot_bytes.items())
         tokens = torch.from_numpy(tokens).to(self.device)
         pos = torch.from_numpy(pos).to(self.device)
         t = obs.now()
@@ -166,7 +171,7 @@ class ServeEngine:
         self.steps_run += 1
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         obs.RECORDER.record("serve.decode", t, obs.now(), parent=step_id, active=active,
-                            contexts=contexts)
+                            contexts=contexts, cache_bytes=cache_bytes)
         for i, slot in enumerate(self.slots):
             if not slot.active:
                 continue

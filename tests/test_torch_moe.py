@@ -140,7 +140,9 @@ def _jax_shapes(cfg):
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_param_shapes_and_counts_match_reference(arch, which):
     jcfg, tcfg = getattr(jconfigs, which)(arch), getattr(tconfigs, which)(arch)
-    assert tcfg == tcfg.replace(**{f: getattr(jcfg, f) for f in tcfg.__dataclass_fields__})
+    assert tcfg == tcfg.replace(**{f: getattr(jcfg, f) if hasattr(jcfg, f)
+                                       else tcfg.__dataclass_fields__[f].default
+                                    for f in tcfg.__dataclass_fields__})
     ours = {path: tuple(s.shape) for path, s in flatten_specs(TM.param_shapes(tcfg))}
     assert ours == _jax_shapes(jcfg)
     assert tcfg.param_count() == jcfg.param_count()
@@ -156,7 +158,9 @@ def test_dense_configs_match_reference(arch):
     shapes and count, and active == total (no experts)."""
     for which in ("get", "get_smoke"):
         jcfg, tcfg = getattr(jconfigs, which)(arch), getattr(tconfigs, which)(arch)
-        assert tcfg == tcfg.replace(**{f: getattr(jcfg, f) for f in tcfg.__dataclass_fields__})
+        assert tcfg == tcfg.replace(**{f: getattr(jcfg, f) if hasattr(jcfg, f)
+                                       else tcfg.__dataclass_fields__[f].default
+                                    for f in tcfg.__dataclass_fields__})
         assert tcfg.param_count() == jcfg.param_count() == tcfg.active_param_count()
         if which == "get_smoke":
             ours = {p: tuple(s.shape) for p, s in flatten_specs(TM.param_shapes(tcfg))}

@@ -98,7 +98,9 @@ def _final_state(ckpt_dir):
 @pytest.mark.parametrize("which", ["get", "get_smoke"])
 def test_tiny_param_shapes_and_count_match_reference(which):
     jcfg, tcfg = getattr(jconfigs, which)("tiny"), getattr(tconfigs, which)("tiny")
-    assert tcfg == tcfg.replace(**{f: getattr(jcfg, f) for f in tcfg.__dataclass_fields__})
+    assert tcfg == tcfg.replace(**{f: getattr(jcfg, f) if hasattr(jcfg, f)
+                                       else tcfg.__dataclass_fields__[f].default
+                                    for f in tcfg.__dataclass_fields__})
     ours = {path: tuple(s.shape) for path, s in flatten_specs(TM.param_shapes(tcfg))}
     assert ours == _jax_shapes(jcfg)
     assert tcfg.param_count() == jcfg.param_count()

@@ -75,7 +75,9 @@ def test_configs_and_param_shapes_match_reference(arch, which):
     parameter shape (seamless: the ``encoder`` subtree and each decoder
     layer's ``cross`` subtree, stacked) and the parameter count."""
     jcfg, tcfg = getattr(jconfigs, which)(arch), getattr(tconfigs, which)(arch)
-    assert tcfg == tcfg.replace(**{f: getattr(jcfg, f) for f in tcfg.__dataclass_fields__})
+    assert tcfg == tcfg.replace(**{f: getattr(jcfg, f) if hasattr(jcfg, f)
+                                       else tcfg.__dataclass_fields__[f].default
+                                    for f in tcfg.__dataclass_fields__})
     assert tcfg.is_encdec == jcfg.is_encdec == (arch == AUDIO)
     assert TT.layer_kinds(tcfg) == JT.layer_kinds(jcfg)
     assert TT.layer_kinds(tcfg, encoder=True) == JT.layer_kinds(jcfg, encoder=True)
