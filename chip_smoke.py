@@ -100,7 +100,17 @@ nothing is caught and carried on past:
                 ServeEngine (the last four on granite-8b's schedule); the
                 kernel launch counts are set to 0 just before each run, read
                 just after it and matched exactly (per prefill and decode
-                step, e.g. seamless: 72 and 24);
+                step, e.g. seamless: 72 and 24; the decode step is a CUDA
+                graph, captured in the warm-up, and each replay adds its
+                capture's launches to the wrappers' counts), and every
+                decode step of the run must replay the graph; then
+                graph_check: a graphed engine against an eager one
+                (M.decode_step called directly) over GRAPH_STEPS decode steps
+                of batch 4, greedy tokens identical and the widest logit
+                difference reported, one eager step under
+                torch.cuda.set_sync_debug_mode("error"), a replaced cache
+                captured again; moonlight-smoke in bf16 (the dropless
+                experts' grouped GEMMs) the same, on one line;
   6. profile  — after each serving run, the same 8 requests served again under
                 torch.profiler: host and device time of the prefill and decode
                 spans, the device's idle share, the port kernels' time and the
@@ -142,7 +152,8 @@ nothing is caught and carried on past:
                 microbatches), every step's loss within 1e-5 relative of
                 phase 7's and the launches equal to its; granite-8b serving
                 phase 5's 8 requests under the tp2d rules, the greedy tokens
-                and launches equal to phase 5's; then, with the group
+                and launches equal to phase 5's (a sharded step runs
+                eagerly); then, with the group
                 destroyed, the dry-run (repro_torch.launch.dryrun.run_cell)
                 of llama3-405b x train_4k (fsdp), mixtral-8x22b x
                 decode_32k (tp2d), recurrentgemma-2b x long_500k
@@ -154,7 +165,7 @@ A summary block follows (phase 10: card, build time, each library's registers,
 spills, tensor-core and cp.async instruction counts, with each kernel's in
 src/repro_torch/_build/chip_smoke_build.json, where each kernel's other timed
 shapes and its gradient rule's timings go too; the kernel and rule times
-beside their bounds). The whole output stays under 22,000 bytes.
+beside their bounds). The whole output stays under 24,000 bytes.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel record. Imports nothing of JAX or of the JAX package.
 """
@@ -857,14 +868,16 @@ class Trace:
     labels), and per record_function label its calls, host ns and the
     device ns of the kernels that its ops launched (an op is the label's
     when it starts inside one of the label's ranges, on any thread: the
-    backward's rules run on autograd's). ``prof.key_averages()`` gives the
+    backward's rules run on autograd's) or that its CUDA graph launches
+    replayed (a replayed kernel shares its ``cudaGraphLaunch``'s correlation
+    id; ``graph_kernels`` counts them). ``prof.key_averages()`` gives the
     same sums but first builds the event tree, which takes tens of seconds
     for the few hundred thousand events of one serving run."""
 
     def __init__(self, prof, labels=()):
         self.kernels: dict[str, list] = {}
         ranges = {label: [] for label in labels}
-        op_start, kernel_ops = {}, []
+        op_start, kernel_ops, graph_launches = {}, [], {}
         for e in prof.profiler.kineto_results.events():
             name = e.name()
             if e.device_type() != DeviceType.CPU:
@@ -873,12 +886,21 @@ class Trace:
                 k = self.kernels.setdefault(name, [0, 0])
                 k[0] += 1
                 k[1] += e.duration_ns()
-                kernel_ops.append((e.linked_correlation_id(), e.duration_ns()))
+                kernel_ops.append((e.linked_correlation_id(), e.correlation_id(),
+                                   e.duration_ns()))
             elif name in ranges:
                 ranges[name].append((e.start_ns(), e.start_ns() + e.duration_ns()))
+            elif "GraphLaunch" in name:              # the runtime call of a replay
+                graph_launches[e.correlation_id()] = e.start_ns()
             elif not e.linked_correlation_id():      # a PyTorch op, not a runtime call
                 op_start[e.correlation_id()] = e.start_ns()
-        launched = sorted((op_start[op], ns) for op, ns in kernel_ops if op in op_start)
+        # a replayed CUDA graph's kernels are launched by no op, but by the
+        # graph launch whose correlation id they carry
+        graphed = [(graph_launches[corr], ns) for _, corr, ns in kernel_ops
+                   if corr in graph_launches]
+        self.graph_kernels = len(graphed)
+        launched = sorted([(op_start[op], ns) for op, corr, ns in kernel_ops
+                           if corr not in graph_launches and op in op_start] + graphed)
         starts = [t for t, _ in launched]
         cum = [0]
         for _, ns in launched:
@@ -1945,6 +1967,14 @@ def phase_model(dev) -> None:
     parts = [model_check(dev, *check) for check in MODEL_CHECKS]
     log("[model] serving f32 card vs CPU, worst |err| over prefill and decode logits and "
         "every cache leaf (atol=rtol=1e-3), launches per prefill: " + "; ".join(parts))
+    # the dropless experts' bf16 route (grouped GEMMs) under the graph; the
+    # f32 model checks above run experts_loop, which reads the host, eagerly
+    cfg = configs.get_smoke("moonlight-16b-a3b")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           M.compute_dtype(cfg), dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in (37, 20, 45, 29)]
+    log(f"[graph] {cfg.name} {cfg.dtype}: {graph_check(dev, cfg, params, prompts, 128)}")
     parts = [train_check(dev, arch, steps) for arch, steps in TRAIN_CHECKS]
     log("[model] training f32 card vs CPU, batch 2 x 100, loss and every grad leaf of one "
         "step, then the steps' loss and grad_norm (atol=rtol=1e-3), launches per step: "
@@ -1952,6 +1982,75 @@ def phase_model(dev) -> None:
 
 
 _SCHEDULES: dict = {}       # prompt range -> the schedule last printed for it
+GRAPH_STEPS = 32            # decode steps a graphed and an eager engine are compared over
+
+
+def graph_check(dev, cfg, params, prompts: list, max_len: int) -> str:
+    """The graphed decode step against the eager one on the card. Two engines
+    of batch 4 serve ``prompts[:4]`` for GRAPH_STEPS decode steps each, one
+    through its ``ServeStep`` and one through ``M.decode_step`` called
+    directly: their greedy tokens must be identical (the widest logit
+    difference of a step is reported), the graphed one must capture once and
+    replay every later step, and its kernel wrappers must count the prefills
+    and every decode step once (the first run eagerly, the rest replayed;
+    the capture not at all). Then one eager decode step runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host read inside the
+    step), and the graphed engine's cache is replaced, after which it must
+    capture again and still give the eager engine's tokens. Returns the
+    part of the serving line."""
+    def eager(p, cache, tokens, pos):
+        with torch.inference_mode():
+            return M.decode_step(p, cfg, cache, tokens, pos)
+
+    runs = []
+    for graphed in (True, False):
+        engine = ServeEngine(cfg, params, max_batch=4, max_len=max_len, device=dev)
+        inner, seen = (engine.decode if graphed else eager), []
+
+        def spy(*args, inner=inner, seen=seen):
+            logits, cache = inner(*args)
+            seen.append(logits.clone())
+            return logits, cache
+        engine.decode = spy
+        reset_counts()
+        rids = [engine.submit(p, max_new_tokens=GRAPH_STEPS + 1) for p in prompts[:4]]
+        engine.run()
+        runs.append((engine, seen, [engine.requests[r].generated for r in rids],
+                     read_counts()))
+    (g, g_logits, g_tokens, g_counts), (e, e_logits, e_tokens, _) = runs
+    step, n = g.serve_step, len(g_logits)
+    if g_tokens != e_tokens or n != len(e_logits) or n < GRAPH_STEPS:
+        fail(f"{cfg.name}: the graphed engine's tokens differ from the eager one's "
+             f"({n} and {len(e_logits)} steps)")
+    worst = max(float((a - b).abs().max()) for a, b in zip(g_logits, e_logits))
+    if (step.captures, step.replays) != (1, n - 1):
+        fail(f"{cfg.name}: {step.captures} captures and {step.replays} replays in "
+             f"{n} decode steps")
+    per_decode = launches_per_decode(cfg)
+    expect = {k: per * len(prompts[:4]) + per_decode[k] * n
+              for k, per in launches_per_prefill(cfg).items()}
+    if g_counts != expect:
+        fail(f"{cfg.name}: graphed engine launched {g_counts}, expected {expect}")
+    tokens = torch.tensor([[r[-1]] for r in e_tokens], device=dev)
+    pos = torch.tensor([len(p) + GRAPH_STEPS for p in prompts[:4]], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager(params, e.cache, tokens, pos)
+    except RuntimeError as exc:
+        fail(f"{cfg.name}: an eager decode step synchronises: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g.cache = M.init_cache(cfg, 4, max_len, dev)
+    again = []
+    for engine in (g, e):
+        rid = engine.submit(prompts[0], max_new_tokens=9)
+        engine.run()
+        again.append(engine.requests[rid].generated)
+    if step.captures != 2 or again[0] != again[1]:
+        fail(f"{cfg.name}: after a new cache, {step.captures} captures, tokens "
+             f"{again[0]} against the eager {again[1]}")
+    return f"{n} x 4 tokens = eager, |dlogit| {worst:.1e}, no sync, recaptured"
 
 
 def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) -> dict:
@@ -1997,6 +2096,8 @@ def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) 
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lengths]
     torch.cuda.reset_peak_memory_stats()
     reset_counts()                        # count the main path's run only
+    step = engine.serve_step
+    replays0 = step.replays
     t0 = time.perf_counter()
     rids = [engine.submit(p, max_new_tokens=int(n)) for p, n in zip(prompts, max_new)]
     engine.run()
@@ -2015,13 +2116,12 @@ def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) 
         log(f"[serve] schedule: {len(done)} requests, {schedule}")
     _SCHEDULES[prompt_range] = schedule
     log(f"[serve] {arch} {cfg.num_layers} x {cfg.d_model}, {n_params / 1e9:.3f} B{active} "
-        f"{cfg.dtype} params made on the card in {setup_s:.3f} s (set-up); wall {wall:.4f} s: "
-        f"{n_prefill} prefills, mean {1e3 * statistics.mean(stats['prefill_s']):.3f} ms per "
-        f"request; {n_steps} decode steps (batch 4), mean "
-        f"{1e3 * statistics.mean(stats['decode_s']):.3f} ms, median "
-        f"{1e3 * statistics.median(stats['decode_s']):.3f} ms per step; "
-        f"{tokens} tokens, {tokens / wall:.2f} tokens/s; peak memory "
-        f"{peak / 2**30:.3f} GiB; launches {counts_str(launches)}")
+        f"{cfg.dtype}, init {setup_s:.3f} s, wall {wall:.4f} s: "
+        f"{n_prefill} prefills, mean {1e3 * statistics.mean(stats['prefill_s']):.3f} ms; "
+        f"{n_steps} decode steps, mean {1e3 * statistics.mean(stats['decode_s']):.3f} ms; "
+        f"{tokens} tokens, {tokens / wall:.2f}/s; peak "
+        f"{peak / 2**30:.3f} GiB; launches {counts_str(launches)}; "
+        f"{step.replays - replays0} replayed")
     card = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     if not all(r.done for r in done):
         fail("not every request completed")
@@ -2035,13 +2135,16 @@ def phase_serve(dev, arch: str, *, max_len: int, prompt_range: tuple[int, int]) 
     if n_prefill != len(done) or launches != expect:
         fail(f"{arch}: launches {launches} != {expect} for {n_prefill} prefills and "
              f"{n_steps} decode steps")
+    if step.replays - replays0 != (0 if moe_mod.decode_reads_host(cfg, M.compute_dtype(cfg))
+                                   else n_steps):
+        fail(f"{arch}: {step.replays - replays0} of {n_steps} decode steps replayed the graph")
     with torch.inference_mode():                # greedy first token, request alone
         logits, _ = M.prefill(params, cfg, engine.prefill_batch(prompts[0]), max_len)
     if int(torch.argmax(logits[0])) != done[0].generated[0]:
         fail("first token of request 0 differs from its single-request prefill")
-    return {"arch": arch, "cfg": cfg, "launches": launches, "engine": engine,
-            "prompts": prompts, "max_new": max_new, "stats": stats, "wall_s": wall,
-            "tokens": tokens, "steps": n_steps, "card": card,
+    log(f"[graph] {arch}: {graph_check(dev, cfg, params, prompts, max_len)}")
+    return {"arch": arch, "cfg": cfg, "launches": launches, "engine": engine, "prompts": prompts, "max_new": max_new, "stats": stats,
+            "wall_s": wall, "tokens": tokens, "steps": n_steps, "card": card,
             "generated": [r.generated for r in done]}
 
 
@@ -2050,7 +2153,7 @@ def top_kernels(trace: Trace, n: int = 2) -> str:
     busy_ms = trace.busy_ms()
     top = sorted(trace.kernels.items(), key=lambda kv: -kv[1][1])[:n]
     return "; ".join(f"{ns / 1e6:.3f} ms ({ns / 1e6 / max(busy_ms, 1e-9):.1%}) x{count} "
-                     f"{name[:40]}" for name, (count, ns) in top)
+                     f"{name[:32]}" for name, (count, ns) in top)
 
 
 def phase_profile(serve: dict) -> None:
@@ -2074,7 +2177,7 @@ def phase_profile(serve: dict) -> None:
                    "serve.decode": statistics.mean(stats["decode_s"]) * 1e6}
     engine.prefill = labelled(engine.prefill, "serve.prefill")
     engine.decode = labelled(engine.decode, "serve.decode")
-    steps0 = engine.steps_run
+    steps0, replays0 = engine.steps_run, engine.serve_step.replays
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rids = [engine.submit(p, max_new_tokens=int(n))
@@ -2088,6 +2191,10 @@ def phase_profile(serve: dict) -> None:
         fail(f"{arch}: traced run served {tokens} tokens in {steps} steps, phase 5 "
              f"{serve['tokens']} in {serve['steps']}")
     trace = Trace(prof, untraced_us)
+    replayed = engine.serve_step.replays > replays0
+    if replayed and not (trace.graph_kernels and trace.labels["serve.decode"]["device_ns"]):
+        fail(f"{arch}: the trace gives the replayed decode steps "
+             f"{trace.graph_kernels} kernels")
     busy_us = trace.busy_ms() * 1e3
     untraced_wall_us = serve["wall_s"] * 1e6
     port_us = {name: trace.matching_ms(pat) * 1e3
@@ -2626,7 +2733,7 @@ def phase_sharded(dev, train: dict, serve: dict) -> list:
     same = sum(a == b for a, b in zip(tokens, serve["generated"]))
     msg += (f"; {arch} {rules}: {same}/{len(rids)} token-equal to phase 5, "
             f"{sum(map(len, tokens))} tokens in {wall:.3f} s, {counts_str(launches)} "
-            f"(phase 5 {counts_str(serve['launches'])})")
+            f"(eager; phase 5 graphed {counts_str(serve['launches'])})")
     if same != len(rids) or launches != serve["launches"]:
         fail(msg)
     runs.append((f"{arch} serving, {rules} (1 x 1 mesh)", cfg, {"launches": launches}))

@@ -99,12 +99,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 def rotary_embedding(positions: torch.Tensor, head_dim: int,
                      theta: float = 1e4) -> tuple[torch.Tensor, torch.Tensor]:
-    """(sin, cos) tables for the given positions; shape (..., head_dim/2)."""
+    """(sin, cos) tables for the given positions; shape (..., head_dim/2).
+    The base stays a Python scalar: a tensor made from it on the card would
+    be a blocking copy from the host, which stalls the stream every layer
+    and cannot be captured in a CUDA graph. ``pow`` rounds it to float32
+    first, so the tables are bitwise those of a float32 base tensor."""
     half = head_dim // 2
     exponent = -torch.arange(0, half, dtype=torch.float32,
                              device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exponent)
+    freqs = torch.pow(float(theta), exponent)
     angles = positions.float()[..., None] * freqs
     return torch.sin(angles), torch.cos(angles)
 

@@ -41,7 +41,8 @@ from repro_torch.models.layers import ParamSpec, swiglu
 from repro_torch.parallel.ctx import constrain_logical
 
 __all__ = ["moe_specs", "route", "capacity", "slots", "moe_apply", "moe_decode_apply",
-           "route_sigmoid", "dispatch_order", "moe_experts", "experts_loop", "moe_dropless"]
+           "route_sigmoid", "dispatch_order", "moe_experts", "experts_loop", "moe_dropless",
+           "decode_reads_host"]
 
 
 def moe_specs(cfg) -> dict:
@@ -109,7 +110,7 @@ def moe_decode_apply(p: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch
 
 def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) → (out (B, S, D), aux loss, a 0-d f32 tensor)."""
-    if cfg.router_scoring == "sigmoid":
+    if _dropless(cfg):
         return moe_dropless(p, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -143,6 +144,11 @@ def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor
 
 
 # ------------------------------------------------ sigmoid router, dropless
+def _dropless(cfg) -> bool:
+    """Whether :func:`moe_apply` routes through :func:`moe_dropless`."""
+    return cfg.router_scoring == "sigmoid"
+
+
 def route_sigmoid(x: Tensor, router: Tensor, bias: Tensor, k: int, scaling: float):
     """x: (T, D) → (weights (T, k) f32, experts (T, k)): sigmoid of the
     logits in f32; the top k of scores + bias choose, the scores weight,
@@ -189,9 +195,22 @@ def moe_experts(x: Tensor, offs: Tensor, w_gate: Tensor, w_up: Tensor,
     raise ValueError(f"moe_experts: unsupported device {x.device}")
 
 
+def _loop_on_card(dtype: torch.dtype) -> bool:
+    """Whether :func:`moe_experts` on the card runs :func:`experts_loop`,
+    which reads the group offsets on the host: every dtype but bf16."""
+    return dtype != torch.bfloat16
+
+
+def decode_reads_host(cfg, dtype: torch.dtype) -> bool:
+    """Whether :func:`moe_apply` in ``dtype`` on the card reads a device
+    value on the host at S = 1, which stalls the stream and rules out a CUDA
+    graph: the dropless experts outside bf16 (:func:`_loop_on_card`)."""
+    return cfg.num_experts > 0 and _dropless(cfg) and _loop_on_card(dtype)
+
+
 @moe_experts.register_kernel("cuda")
 def _(x, offs, w_gate, w_up, w_down):
-    if x.dtype != torch.bfloat16:
+    if _loop_on_card(x.dtype):
         return experts_loop(x, offs, w_gate, w_up, w_down)
     h = swiglu(torch._grouped_mm(x, w_gate, offs=offs), torch._grouped_mm(x, w_up, offs=offs))
     return torch._grouped_mm(h, w_down, offs=offs)

@@ -5,7 +5,8 @@ step, and the prefill and decode steps, on one device or sharded over a
 The reference jits each step with sharded inputs and donates the state or
 cache. Here a step runs eagerly; the train step updates the train state in
 place and the decode step the cache, which takes the place of buffer
-donation.
+donation. On the card without a mesh the decode step is captured once as a
+CUDA graph and replayed (:class:`ServeStep`), which takes the place of jit.
 
 ``mesh=None`` is the one-device path. With a ``mesh`` and a rule set
 (:mod:`repro_torch.parallel.sharding`), the state, the batch and the cache
@@ -28,7 +29,14 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch.kernels.decode_attention.kernel import decode_attention_kernel
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
+                                                        flash_attention_kernel)
+from repro_torch.kernels.mla_decode.kernel import mla_decode_kernel
+from repro_torch.kernels.rglru.kernel import lru_scan_kernel
+from repro_torch.kernels.ssd.kernel import ssd_kernel
 from repro_torch.models import model as M
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.ctx import sharding_ctx
@@ -38,7 +46,7 @@ from repro_torch.train.optimizer import (OptConfig, adamw_update, init_opt, tree
 __all__ = ["init_train_state", "abstract_train_state", "train_state_shardings",
            "place_train_state", "batch_struct", "abstract_batch", "batch_shardings",
            "place_batch", "place_params", "init_cache", "make_train_step",
-           "make_prefill_step", "make_serve_step"]
+           "make_prefill_step", "make_serve_step", "ServeStep", "LAUNCH_COUNTERS"]
 
 _fit_pspec = shd.fit_pspec       # the reference's name for the divisibility fit
 
@@ -266,20 +274,104 @@ def make_prefill_step(cfg, *, max_len: int, mesh=None, rules=None):
     return prefill_step
 
 
-def make_serve_step(cfg, *, mesh=None, rules=None):
+def make_serve_step(cfg, *, mesh=None, rules=None) -> "ServeStep":
     """Returns serve_step(params, cache, tokens, pos) -> (logits (B, V) f32,
     cache); ``cache`` is updated in place (with a mesh, each rank writes its
-    own shard; the logits are gathered)."""
+    own shard; the logits are gathered). On the card without a mesh the step
+    is replayed as a CUDA graph (:class:`ServeStep`)."""
+    return ServeStep(cfg, mesh=mesh, rules=rules)
 
-    def serve_step(params, cache, tokens, pos):
-        with _grad_off(mesh), _sharded(mesh, rules):
-            if mesh is None:
+
+def _graph_key(params, cache, tokens, pos) -> tuple:
+    """What a captured decode step is bound to: the input shapes and dtypes,
+    the params (by identity) and the cache leaves' addresses."""
+    return (id(params), tuple(t.data_ptr() for t in tree_leaves(cache)),
+            tokens.device, tuple(tokens.shape), tokens.dtype, tuple(pos.shape), pos.dtype)
+
+
+# The kernel wrappers' launch counters. A wrapper counts when it is called,
+# so it counts a capture, which runs nothing on the card, and not a replay,
+# which launches through no wrapper: ServeStep moves the capture's counts to
+# its replays.
+LAUNCH_COUNTERS = ((decode_attention_kernel, "launches"),
+                   (decode_attention_kernel, "combine_launches"),
+                   (mla_decode_kernel, "launches"), (mla_decode_kernel, "combine_launches"),
+                   (flash_attention_kernel, "launches"),
+                   (flash_attention_bwd_kernel, "launches"),
+                   (lru_scan_kernel, "launches"), (ssd_kernel, "launches"))
+
+
+def _launch_counts() -> list[int]:
+    return [getattr(fn, name) for fn, name in LAUNCH_COUNTERS]
+
+
+def _add_launches(counts: list[int]) -> None:
+    for (fn, name), n in zip(LAUNCH_COUNTERS, counts):
+        setattr(fn, name, getattr(fn, name) + n)
+
+
+class ServeStep:
+    """The decode step of :func:`make_serve_step`.
+
+    On a CUDA device without a mesh, when the model's decode step reads
+    nothing back on the host (``moe.decode_reads_host``), the first call for
+    a key (:func:`_graph_key`) runs the step eagerly, which is the step's
+    result and builds every kernel, then captures ``M.decode_step`` on static
+    copies of ``tokens`` and ``pos`` into a CUDA graph. Every later call with
+    that key copies its ``tokens`` and ``pos`` into those buffers, replays the
+    graph, which writes the cache in place at the addresses it was captured
+    on, and returns a copy of the graph's logits, so logits held across
+    steps stay as they were. Another key (another cache, batch or params)
+    captures again, in place of the old graph. On the CPU, with a mesh
+    (DTensors), or for a decode step that reads the host, the step runs
+    eagerly every call.
+
+    ``captures`` and ``replays`` count the graph's captures and replays. The
+    kernel wrappers' launch counts (``LAUNCH_COUNTERS``) count the launches
+    that run: the eager step's and each replay's, not the capture's."""
+
+    def __init__(self, cfg, *, mesh=None, rules=None):
+        self.cfg, self.mesh, self.rules = cfg, mesh, rules
+        self.captures = self.replays = 0
+        self._key = self._graph = self._params = None
+
+    def __call__(self, params, cache, tokens, pos):
+        cfg, mesh = self.cfg, self.mesh
+        with _grad_off(mesh), _sharded(mesh, self.rules):
+            if mesh is not None:
+                placed = place_batch({"tokens": tokens, "pos": pos}, mesh, self.rules)
+                logits, cache = M.decode_step(params, cfg, cache, placed["tokens"],
+                                              placed["pos"])
+                return shd.full(logits), cache
+            if (tokens.device.type != "cuda"
+                    or moe_mod.decode_reads_host(cfg, M.compute_dtype(cfg))):
                 return M.decode_step(params, cfg, cache, tokens, pos)
-            placed = place_batch({"tokens": tokens, "pos": pos}, mesh, rules)
-            logits, cache = M.decode_step(params, cfg, cache, placed["tokens"], placed["pos"])
-            return shd.full(logits), cache
+            key = _graph_key(params, cache, tokens, pos)
+            if key != self._key:
+                return self._capture(key, params, cache, tokens, pos)
+            graph, static_tokens, static_pos, logits, launches = self._graph
+            static_tokens.copy_(tokens)
+            static_pos.copy_(pos)
+            graph.replay()
+            _add_launches(launches)
+            self.replays += 1
+            return logits.clone(), cache
 
-    return serve_step
+    def _capture(self, key, params, cache, tokens, pos):
+        self._key = self._graph = self._params = None    # the old graph's memory goes first
+        logits, cache = M.decode_step(params, self.cfg, cache, tokens, pos)
+        static_tokens, static_pos = tokens.clone(), pos.clone()
+        graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            static_logits, _ = M.decode_step(params, self.cfg, cache, static_tokens, static_pos)
+        launches = [n - b for n, b in zip(_launch_counts(), before)]
+        _add_launches([-n for n in launches])     # the capture launched nothing
+        # the params are held so that their id in the key stays theirs
+        self._key, self._params = key, params
+        self._graph = (graph, static_tokens, static_pos, static_logits, launches)
+        self.captures += 1
+        return logits, cache
 
 
 def place_params(params: dict, cfg, mesh, rules) -> dict:

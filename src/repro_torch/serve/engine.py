@@ -22,9 +22,15 @@ its start, the requests it admitted); per admitted request, children of its
 step, ``serve.request.queued`` (``submit()`` to its prefill),
 ``serve.request.prefill`` (its batch, the prefill, the splice and the first
 token read on the host) and ``serve.request.hold`` (that read to the step's
-return); and ``serve.decode`` (the decode call to its tokens on the host).
-Spans end at host reads the engine makes anyway or at the step's return, so
-the recording adds no synchronisation and no device work.
+return); and ``serve.decode`` (the decode call to its tokens on the host;
+``graph`` 1 when the step replayed its CUDA graph, 0 when it ran eagerly or
+captured). Spans end at host reads the engine makes anyway or at the step's
+return, so the recording adds no synchronisation and no device work.
+
+On the card without a mesh the decode step is a CUDA graph
+(:class:`repro_torch.parallel.steps.ServeStep`, ``serve_step``), captured at
+the engine's first decode step on its cache, whose leaves stay at fixed
+addresses: a prefill's row is spliced into them in place.
 """
 
 from __future__ import annotations
@@ -74,7 +80,8 @@ class ServeEngine:
         self.params = params if mesh is None else place_params(params, cfg, mesh, rules)
         self.max_batch, self.max_len = max_batch, max_len
         self.prefill = make_prefill_step(cfg, max_len=max_len, mesh=mesh, rules=rules)
-        self.decode = make_serve_step(cfg, mesh=mesh, rules=rules)
+        self.serve_step = make_serve_step(cfg, mesh=mesh, rules=rules)
+        self.decode = self.serve_step     # a caller may wrap it; serve_step counts replays
         self.cache = init_cache(cfg, max_batch, max_len, self.device, mesh=mesh, rules=rules)
         self._slot_bytes = M.attended_slot_bytes(cfg, max_len)
         self.slots = [_Slot() for _ in range(max_batch)]
@@ -166,12 +173,14 @@ class ServeEngine:
                                    for cap, n in self._slot_bytes.items())
         tokens = torch.from_numpy(tokens).to(self.device)
         pos = torch.from_numpy(pos).to(self.device)
+        replays = self.serve_step.replays
         t = obs.now()
         logits, self.cache = self.decode(self.params, self.cache, tokens, pos)
         self.steps_run += 1
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         obs.RECORDER.record("serve.decode", t, obs.now(), parent=step_id, active=active,
-                            contexts=contexts, cache_bytes=cache_bytes)
+                            contexts=contexts, cache_bytes=cache_bytes,
+                            graph=int(self.serve_step.replays > replays))
         for i, slot in enumerate(self.slots):
             if not slot.active:
                 continue

@@ -50,6 +50,28 @@ def test_rope(theta):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32_TOL)
 
 
+def _former_rotary_tables(positions, head_dim, theta):
+    """The tables as the port built them before its base became a Python
+    scalar: a float32 base tensor on the positions' device."""
+    half = head_dim // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device),
+                      exponent)
+    angles = positions.float()[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+# (head_dim, theta): granite-8b (the registry's 1e4 and the benchmark's 1e7),
+# Moonlight's rope part (R = 64, 5e4), recurrentgemma-2b's local attention
+@pytest.mark.parametrize("head_dim,theta", [(128, 1e4), (128, 1e7), (64, 5e4), (256, 1e4)])
+def test_rotary_tables_are_bitwise_the_former_formula(head_dim, theta):
+    decode = torch.from_numpy(_rng(9).integers(0, 8192, (128, 1)))
+    for pos in (torch.arange(8192)[None, :], decode):
+        new = TL.rotary_embedding(pos, head_dim, theta)
+        for a, b in zip(new, _former_rotary_tables(pos, head_dim, theta)):
+            assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
 def test_swiglu():
     g = _rng(5).standard_normal((3, 7, 32), np.float32) * 4
     u = _rng(6).standard_normal((3, 7, 32), np.float32)

@@ -90,8 +90,70 @@ def test_steps_record_the_queue_they_found_and_their_decode(rec):
         step = by_id[d.parent]
         assert step.start <= d.start <= d.end <= step.end
         assert 1 <= d.attrs["active"] <= 2 and d.attrs["contexts"] >= d.attrs["active"]
+        assert d.attrs["graph"] == 0            # the CPU step runs eagerly
+    assert engine.serve_step.captures == engine.serve_step.replays == 0
     # a step with no slot left active records no decode (request 1 is done at admission)
     assert len(steps) >= len(decodes)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-2b", "moonlight-16b-a3b"])
+def test_the_serve_step_on_the_cpu_is_the_models_decode_step(arch):
+    """Logits and every cache leaf equal to ``M.decode_step``'s, bit for bit,
+    over three steps on a cache of random contents; nothing is captured."""
+    from repro_torch.parallel.steps import make_serve_step
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = tconfigs.get_smoke(arch).replace(dtype="float32")
+    gen = torch.Generator().manual_seed(5)
+    params = M.init_params(cfg, gen, torch.float32, "cpu")
+    cache = M.init_cache(cfg, 3, 24)
+    for t in tree_leaves(cache):
+        t.copy_(torch.randn(t.shape, generator=gen).to(t.dtype))
+    ref_cache = {"layers": {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                                else v.clone()) for k, v in cache["layers"].items()}}
+    step = make_serve_step(cfg)
+    pos = torch.tensor([4, 11, 0])
+    for _ in range(3):
+        tokens = torch.randint(0, cfg.vocab_size, (3, 1), generator=gen)
+        logits, out_cache = step(params, cache, tokens, pos)
+        with torch.inference_mode():
+            ref, _ = M.decode_step(params, cfg, ref_cache, tokens, pos)
+        assert out_cache is cache and torch.equal(logits, ref)
+        for a, b in zip(tree_leaves(cache), tree_leaves(ref_cache)):
+            assert torch.equal(a, b)
+        pos = pos + 1
+    assert step.captures == step.replays == 0
+
+
+def test_the_serve_step_carries_every_kernel_wrappers_launch_count():
+    """A replay launches through no wrapper, so the serve step adds the
+    capture's counts to the wrappers on each replay: it must know every
+    counter that a wrapper of the port keeps."""
+    import importlib
+    import pkgutil
+
+    import repro_torch.kernels as kernels
+    from repro_torch.parallel.steps import LAUNCH_COUNTERS
+    found = set()
+    for info in pkgutil.iter_modules(kernels.__path__):
+        if not info.ispkg:
+            continue
+        mod = importlib.import_module(f"repro_torch.kernels.{info.name}.kernel")
+        for fn in vars(mod).values():
+            if callable(fn) and getattr(fn, "__module__", None) == mod.__name__:
+                found |= {(fn, n) for n in ("launches", "combine_launches")
+                          if isinstance(getattr(fn, n, None), int)}
+    assert len(found) == 8 and found == set(LAUNCH_COUNTERS)
+
+
+# (arch, dtype, whether a decode step reads the host): only the dropless
+# experts outside bf16 run the experts loop, which reads its offsets
+@pytest.mark.parametrize("arch,dtype,reads", [
+    ("moonlight-16b-a3b", "bfloat16", False), ("moonlight-16b-a3b", "float32", True),
+    ("mixtral-8x22b", "float32", False), ("granite-8b", "float32", False)])
+def test_only_the_dropless_experts_loop_keeps_the_decode_step_eager(arch, dtype, reads):
+    from repro_torch.models import moe
+    cfg = tconfigs.get_smoke(arch).replace(dtype=dtype)
+    assert moe.decode_reads_host(cfg, M.compute_dtype(cfg)) is reads
 
 
 def test_the_buffer_keeps_its_bound_and_counts_what_it_drops():
